@@ -1,0 +1,132 @@
+"""Command-line entry points of the port (the ported subset of
+weaklysuperviseddl_tpu/cli.py):
+
+    python -m weaklysuperviseddl_tpu_torch serve [--smoke] [--device cpu] [--port 8765]
+    python -m weaklysuperviseddl_tpu_torch client --url http://host:8765 --image photo.jpg
+
+``serve`` runs on the card unless ``--device cpu`` is given. It serves float32
+with TF32 off for cuDNN convolutions and matmuls.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def _serve(args, parser) -> int:
+    import numpy as np
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.device import resolve_device
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
+    from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
+    from weaklysuperviseddl_tpu_torch.pipelines.serve import MaskClient, Predictor
+
+    if args.int8:
+        parser.error("--int8 is not ported yet (it waits for the port of ops/quant.py)")
+    if args.checkpoint:
+        parser.error("--checkpoint is not ported yet (it waits for the port of "
+                     "utils/checkpoint.py)")
+    device = resolve_device(args.device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    size = 48 if args.smoke else args.size
+    model = DeepLabV3(num_classes=2, backbone_depth=18 if args.smoke else 50,
+                      width_multiplier=0.25 if args.smoke else 1.0)
+    init_weights(model, torch.Generator().manual_seed(0))
+    pred = Predictor(model, size=size, max_batch=2 if args.smoke else args.max_batch,
+                     packed=args.packed, device=device)
+    pred.warmup(all_buckets=True)
+    server = pred.serve_http(port=0 if args.smoke else args.port)
+    print(f"serving uint8 [h,w,3] → {size}² masks on http://127.0.0.1:{server.port}/predict "
+          f"({device}; np.save bodies; PNG/JPEG via Content-Type: image/*, "
+          f"PNG masks via Accept: image/png)", flush=True)
+    if args.smoke:
+        # self-request round trip through the shipped client, then exit
+        try:
+            mask = MaskClient(f"http://127.0.0.1:{server.port}", timeout=60.0).predict(
+                np.zeros((size, size, 3), np.uint8))
+        finally:
+            server.stop()
+        print(f"smoke round trip OK: mask {mask.shape} values {sorted(set(np.unique(mask)))}")
+        return 0
+    try:  # pragma: no cover - long-running server
+        import time
+
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        server.stop()
+    return 0
+
+
+def _client(args, parser) -> int:
+    import urllib.error
+
+    from weaklysuperviseddl_tpu_torch.pipelines.serve import MaskClient
+
+    client = MaskClient(args.url, wire=args.wire)
+    try:
+        if args.stats:
+            print(json.dumps({"healthz": client.healthz(), "stats": client.stats()}))
+            return 0
+        if not args.image:
+            parser.error("client: pass --image PATH (or --stats)")
+        mask = client.predict_file(args.image)
+    except urllib.error.HTTPError as e:
+        print(f"client: server error: HTTP {e.code} {e.reason} ({args.url})", file=sys.stderr)
+        return 1
+    except (urllib.error.URLError, OSError) as e:
+        print(f"client: cannot reach {args.url}: {getattr(e, 'reason', e)}", file=sys.stderr)
+        return 1
+    import numpy as np
+    from PIL import Image
+
+    out = args.out or os.path.splitext(args.image)[0] + "_mask.png"
+    Image.fromarray((mask > 0).astype(np.uint8) * 255, "L").convert("1").save(out)
+    print(json.dumps({"out": out, "shape": list(mask.shape),
+                      "fg_frac": round(float((mask > 0).mean()), 4)}))
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="weaklysuperviseddl_tpu_torch")
+    parser.add_argument("command", choices=["serve", "client"])
+    parser.add_argument("--smoke", action="store_true",
+                        help="serve: depth 18, width 0.25, 48², max_batch 2, one "
+                             "self-request, then exit")
+    parser.add_argument("--device", default=None,
+                        help="serve: torch device (default: the card; 'cpu' to run "
+                             "on the CPU)")
+    parser.add_argument("--checkpoint", default=None,
+                        help="serve: weights to load (not ported yet); random init "
+                             "if omitted")
+    parser.add_argument("--port", type=int, default=8765)
+    parser.add_argument("--size", type=int, default=256)
+    parser.add_argument("--max-batch", type=int, default=64)
+    parser.add_argument("--packed", default=True, action=argparse.BooleanOptionalAction,
+                        help="serve: bit-packed device→host mask readback (default on)")
+    parser.add_argument("--int8", default=False, action=argparse.BooleanOptionalAction,
+                        help="serve: int8 PTQ (not ported yet)")
+    parser.add_argument("--url", default="http://127.0.0.1:8765",
+                        help="client: base URL of a running MaskServer")
+    parser.add_argument("--image", default=None,
+                        help="client: PNG/JPEG to send (bytes as is; the server decodes)")
+    parser.add_argument("--out", default=None,
+                        help="client: mask PNG output path (default: <image>_mask.png)")
+    parser.add_argument("--wire", choices=["npy", "png"], default="npy",
+                        help="client: response wire format")
+    parser.add_argument("--stats", action="store_true",
+                        help="client: print the server's /healthz and /stats JSON")
+    args = parser.parse_args(list(sys.argv[1:] if argv is None else argv))
+    if args.command == "serve":
+        return _serve(args, parser)
+    return _client(args, parser)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,141 @@
+"""ResNet backbones (port of weaklysuperviseddl_tpu/models/resnet.py), NCHW.
+
+torchvision's module and state-dict layout (``conv1``, ``bn1``,
+``layerX.Y.*``, ``downsample.0/1``), so the JAX package's torch importer reads
+the port's ``state_dict()`` unchanged. BN eps 1e-5; the max-pool pads with
+-inf, as torch's does.
+
+Dilation follows torchvision's ``_make_layer``: when a stage is dilated its
+first block keeps the *previous* dilation and its stride collapses to 1; the
+remaining blocks use the accumulated dilation.
+
+The JAX stem plans ``s2d`` and ``pack8`` are TPU layouts of the same 7x7/2
+convolution; here the stem is that convolution.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}
+BOTTLENECK_DEPTHS = (50,)
+
+
+def _conv(cin, cout, kernel, stride=1, dilation=1):
+    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=(kernel // 2) * dilation,
+                     dilation=dilation, bias=False)
+
+
+class BasicBlock(nn.Module):
+    """2x 3x3 conv + residual (ResNet-18/34)."""
+
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, dilation=1, downsample=None):
+        super().__init__()
+        self.conv1 = _conv(inplanes, planes, 3, stride, dilation)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = _conv(planes, planes, 3, 1, dilation)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.downsample = downsample
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        res = x if self.downsample is None else self.downsample(x)
+        return torch.relu(out + res)
+
+
+class Bottleneck(nn.Module):
+    """1-3-1 bottleneck, expansion 4 (ResNet-50)."""
+
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, dilation=1, downsample=None):
+        super().__init__()
+        self.conv1 = _conv(inplanes, planes, 1)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = _conv(planes, planes, 3, stride, dilation)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv3 = _conv(planes, planes * 4, 1)
+        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.downsample = downsample
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = torch.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        res = x if self.downsample is None else self.downsample(x)
+        return torch.relu(out + res)
+
+
+class ResNetBackbone(nn.Module):
+    """Stem + 4 stages; ``forward`` returns the feature pyramid as a dict
+    (``stem``, ``layer1`` … ``layer4``). ``replace_stride_with_dilation``
+    applies to (layer2, layer3, layer4) as in torchvision; ``width_multiplier``
+    shrinks channel counts (``max(8, int(c * wm))``) for small test models."""
+
+    def __init__(self, depth: int = 50, width_multiplier: float = 1.0,
+                 replace_stride_with_dilation: Sequence[bool] = (False, False, True)):
+        super().__init__()
+        self.depth = depth
+        self.width_multiplier = width_multiplier
+        block = Bottleneck if depth in BOTTLENECK_DEPTHS else BasicBlock
+        stem = self._width(64)
+        self.conv1 = nn.Conv2d(3, stem, 7, stride=2, padding=3, bias=False)
+        self.bn1 = nn.BatchNorm2d(stem)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+
+        inplanes, dilation = stem, 1
+        for i, (num_blocks, base) in enumerate(zip(STAGE_BLOCKS[depth], (64, 128, 256, 512))):
+            planes = self._width(base)
+            stride = 1 if i == 0 else 2
+            previous_dilation = dilation
+            if i > 0 and replace_stride_with_dilation[i - 1]:
+                dilation *= stride
+                stride = 1
+            out_ch = planes * block.expansion
+            downsample = None
+            if stride != 1 or inplanes != out_ch:
+                downsample = nn.Sequential(_conv(inplanes, out_ch, 1, stride), nn.BatchNorm2d(out_ch))
+            blocks = [block(inplanes, planes, stride, previous_dilation, downsample)]
+            blocks += [block(out_ch, planes, 1, dilation) for _ in range(1, num_blocks)]
+            setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
+            inplanes = out_ch
+
+    def _width(self, c: int) -> int:
+        return max(8, int(c * self.width_multiplier))
+
+    @property
+    def feature_channels(self) -> dict[str, int]:
+        expansion = 4 if self.depth in BOTTLENECK_DEPTHS else 1
+        return {f"layer{i + 1}": self._width(c) * expansion
+                for i, c in enumerate((64, 128, 256, 512))}
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        feats = {"stem": x}
+        for i in range(1, 5):
+            x = getattr(self, f"layer{i}")(x)
+            feats[f"layer{i}"] = x
+        return feats
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights: convolutions from N(0, 1/fan_in) (LeCun normal),
+    biases zero, BN at identity (scale 1, shift 0, mean 0, var 1). Drawn on the
+    CPU from ``generator`` so a seed gives the same weights on any device."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
+            w = torch.randn(m.weight.shape, generator=generator) * fan_in ** -0.5
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    return module

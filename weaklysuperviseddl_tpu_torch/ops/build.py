@@ -1,0 +1,60 @@
+"""Builds the port's CUDA sources into shared libraries with ``nvcc``.
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled on first use
+into ``build/`` (listed in ``.gitignore``), named by a hash of its source so a
+changed source never loads a stale library. The libraries are loaded with
+``ctypes`` by the module that wraps each kernel.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
+
+
+def _library_path(source: str) -> Path:
+    """The shared library that ``csrc/<source>`` builds into."""
+    src = CSRC_DIR / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` unless its library exists; returns the path.
+    The compiler's ``-Xptxas -v`` report (registers, shared memory, spills)
+    is kept beside the library as ``.log``."""
+    out = _library_path(source)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # a private temporary name per process and thread, then an atomic rename:
+    # concurrent builds never load or overwrite half a file
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out

@@ -1,0 +1,1 @@
+"""pipelines of the PyTorch port (counterpart of weaklysuperviseddl_tpu.pipelines)."""
