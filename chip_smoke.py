@@ -19,6 +19,25 @@ Phases, one JSON line each:
                served in), predict_many throughput, request latency, and a
                stage breakdown of one batch of 64. The kernel's launch count is
                reset just before this main path is driven and read just after.
+  5. refine  - the refinement kernel against its plain PyTorch version on the
+               card: at [2,16,16], [1,20,24] and [2,37,53], both losses, C=2 and
+               3, windows 5 and 3, lr 1e-2 and 0.2 (where masks move), masks
+               exactly equal and loss rtol 1e-4; at the path's shape
+               [4,256,256], C=2, 20 steps, with S from a DeepLabV3-ResNet50
+               forward on synthetic pets, mask agreement >= 0.9999 and loss
+               rtol 1e-4 at lr 1e-2 and, with random S, at lr 0.1 (masks move);
+               with the model's S at lr 0.1, mismatches only where S is within
+               0.05 of the threshold; two launches bit-identical. Times with
+               CUDA events beside the bound.
+  6. weakly  - the training main path through run_weakly_supervised_alternating
+               at full width: ResNet-50 CAM classifier (37 classes, 224², layer4
+               dilated) → LayerCAM → pseudo-masks → DeepLabV3-ResNet50 os8
+               (256², batch 4) ↔ refinement (256², C=2, window 5, 20 steps,
+               ncut). Cut in depth only (listed in the line). Both kernels'
+               launch counts are reset just before and read just after; then one
+               refinement-sweep batch on the card against the same weights on
+               the CPU, at the path's lr and at lr 0.1 (mask agreement >= 0.995),
+               and a device-time breakdown of one training step.
 Then the card's name and power limit, the kernels line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: no result is
 printed. Exits non-zero without a CUDA device.
@@ -36,6 +55,7 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
 
 
 def emit(phase: str, **fields):
@@ -345,6 +365,285 @@ def phase_serve():
     return launches, raw_dev
 
 
+def refine_work(B: int, H: int, W: int, C: int, window: int, steps: int, loss: str):
+    """(bytes, fp32 operations) the refinement needs at the least, from its
+    shapes. Bytes: S, the image and the int32 mask read once, the uint8 mask
+    written once. Operations, each exp/log/div/sqrt counted as one:
+      once per pixel: the K colour affinities (3 sub, 3 mul, 2 add, the
+        exponent's mul and sub, exp: 11 each; they depend on the image only)
+        and S·log S (3 per class);
+      per pixel and step: softmax(X) (5C-2) and, for ncut, softmax(q) (5C-2);
+        KL (5 per class); per offset and class d, a·d, a·d·d, the W sum and
+        the gradient's centre and mirror sums (6); the VJPs and the KL
+        gradient (13 per class, +4 per class for ncut); Adam (14 per class)."""
+    K = window * window - 1
+    px = B * H * W
+    softmaxes = (5 * C - 2) * (2 if loss == "ncut" else 1)
+    per_step = softmaxes + 5 * C + 6 * K * C + (13 + (4 if loss == "ncut" else 0)) * C + 14 * C
+    ops = px * (11 * K + 3 * C + steps * per_step)
+    nbytes = px * (4 * C + 4 * 3 + 4 + 1)
+    return nbytes, ops
+
+
+def refine_bound(shape, C: int, window: int, steps: int, loss: str):
+    """(least ms, what binds it, operations) of the refinement at [B,H,W]."""
+    nbytes, ops = refine_work(*shape, C, window, steps, loss)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), ops
+
+
+def synthetic_path_batch(model, n: int, size: int, seed: int):
+    """S [n,size,size,2] from a DeepLabV3 forward, normalised images and
+    initial masks (the pets' trimap foreground) for the refinement at the
+    path's shape, all on the model's device."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.data.preprocess import normalize_images
+    from weaklysuperviseddl_tpu_torch.data.synthetic import synthetic_pet_arrays
+
+    dev = next(model.parameters()).device
+    images, _, trimaps = synthetic_pet_arrays(n, image_size=size, seed=seed)
+    x = normalize_images(torch.from_numpy(images).to(dev))
+    with torch.no_grad():
+        S = torch.softmax(model.logits_nhwc(x), dim=-1).contiguous()
+    masks = torch.from_numpy((trimaps == 1).astype(np.int32)).to(dev)
+    return S, x.contiguous(), masks
+
+
+def phase_refine():
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
+    from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda, refine_plain
+
+    # lr 1e-2 (the path's): a logit moves about lr per Adam step, so in 8 steps
+    # no pixel can leave its one-hot start; at lr 0.2 many cross the threshold
+    checks, max_err = [], 0.0
+    for shape in ((2, 16, 16), (1, 20, 24), (2, 37, 53)):
+        for loss in ("ncut", "boundary"):
+            for C in (2, 3):
+                for window in (5, 3):
+                    for lr in (1e-2, 0.2):
+                        rng = np.random.default_rng(len(checks))
+                        S = rng.uniform(0.1, 1, (*shape, C)).astype(np.float32)
+                        S /= S.sum(-1, keepdims=True)
+                        args = [torch.from_numpy(a).cuda() for a in (
+                            S, rng.uniform(-1, 1, (*shape, 3)).astype(np.float32),
+                            rng.integers(0, C, shape).astype(np.int32))]
+                        kw = dict(num_steps=8, lr=lr, loss=loss, window_size=window)
+                        got_m, got_l = refine_cuda(*args, **kw)
+                        again_m, again_l = refine_cuda(*args, **kw)
+                        want_m, want_l = refine_plain(*args, **kw)
+                        torch.cuda.synchronize()
+                        err = abs(float(got_l) - float(want_l))
+                        max_err = max(max_err, err)
+                        case = f"{shape} {loss} C={C} window={window} lr={lr}"
+                        check(torch.equal(got_m, want_m), f"refine masks differ from plain: {case}")
+                        check(err <= 1e-4 * abs(float(want_l)), f"refine loss off: {case}")
+                        check(torch.equal(again_m, got_m) and float(again_l) == float(got_l),
+                              f"refine differs between launches: {case}")
+                        changed = float((got_m != (args[2] == 1)).float().mean())
+                        check(lr < 0.1 or changed > 0.05, f"refine moved no mask: {case}")
+                        checks.append({"shape": list(shape), "loss": loss, "C": C,
+                                       "window": window, "lr": lr, "changed": changed,
+                                       "loss_rel_err": err / abs(float(want_l))})
+
+    # the path's shape, S from DeepLabV3-ResNet50 (random weights, bias centred)
+    # at the path's lr; then lr 0.1, where masks move, with random S and with
+    # the model's S. Near convergence Adam steps by about lr·sign(g), so at lr
+    # 0.1 a pixel whose S is near the threshold ends on the side float noise
+    # picks: with the model's S (near 0.5 over wide areas) mismatches are
+    # allowed only there
+    model = init_weights(DeepLabV3(2, 50, 1.0), torch.Generator().manual_seed(1)).eval().cuda()
+    centre_classifier_bias(model, _requests(np.random.default_rng(1), 4, (256, 256)), 256)
+    S, x, masks = synthetic_path_batch(model, 4, 256, seed=5)
+    rng = np.random.default_rng(9)
+    S_rand = rng.uniform(0.1, 1, tuple(S.shape)).astype(np.float32)
+    S_rand = torch.from_numpy(S_rand / S_rand.sum(-1, keepdims=True)).cuda()
+    path = {}
+    for name, S_case, lr in (("model_S_lr_0.01", S, 1e-2), ("random_S_lr_0.1", S_rand, 0.1),
+                             ("model_S_lr_0.1", S, 0.1)):
+        got_m, got_l = refine_cuda(S_case, x, masks, lr=lr)
+        again_m, again_l = refine_cuda(S_case, x, masks, lr=lr)
+        want_m, want_l = refine_plain(S_case, x, masks, lr=lr)
+        torch.cuda.synchronize()
+        agree = float((got_m == want_m).float().mean())
+        err = abs(float(got_l) - float(want_l))
+        max_err = max(max_err, err)
+        near = (S_case[..., 1] - 0.5).abs()
+        far_mismatch = int(((got_m != want_m) & (near > 0.05)).sum())
+        if name == "model_S_lr_0.1":
+            check(agree >= 0.999 and far_mismatch == 0,
+                  f"refine masks differ away from the threshold at [4,256,256], {name}: "
+                  f"agreement {agree}, {far_mismatch} px with |S-0.5| > 0.05")
+        else:
+            check(agree >= 0.9999, f"refine mask agreement {agree} < 0.9999 at [4,256,256], {name}")
+        check(err <= 1e-4 * abs(float(want_l)), f"refine loss off at [4,256,256], {name}: {err}")
+        check(torch.equal(again_m, got_m) and float(again_l) == float(got_l),
+              f"refine differs between launches at [4,256,256], {name}")
+        changed = float((got_m != masks).float().mean())
+        check(lr < 0.05 or changed > 0.01, f"refine moved no mask at [4,256,256], {name}")
+        path[name] = {"mask_agreement": agree, "mismatched_px": int((got_m != want_m).sum()),
+                      "mismatched_px_far_from_threshold": far_mismatch,
+                      "px_with_S_within_0.05_of_threshold": int((near <= 0.05).sum()),
+                      "changed_frac": changed, "loss": float(got_l),
+                      "loss_rel_err": err / abs(float(want_l))}
+    shape = tuple(masks.shape)
+    bound_ms, bound_by, ops = refine_bound(shape, 2, 5, 20, "ncut")
+    by_steps = {n: cuda_ms(lambda: refine_cuda(S, x, masks, num_steps=n), runs=10)
+                for n in (0, 10)}
+    timing = {
+        "ms": cuda_ms(lambda: refine_cuda(S, x, masks), runs=20),
+        "plain_ms": cuda_ms(lambda: refine_plain(S, x, masks), runs=5, warmup=1),
+        "bound_ms": bound_ms, "bound_by": bound_by, "gflop": ops / 1e9,
+        "ms_at_0_and_10_steps": by_steps,
+        "max_abs_err": max(max_err, err), "shape": list(shape), "C": 2, "window": 5,
+        "steps": 20, "loss": "ncut",
+    }
+    emit("refine", checks=len(checks), small_shapes_equal=True,
+         small_max_loss_rel_err=max(c["loss_rel_err"] for c in checks),
+         small_min_changed_at_lr_0_2=min(c["changed"] for c in checks if c["lr"] > 0.1),
+         path_cases=path, fg_frac_before=float(masks.float().mean()), kernels=["refine"],
+         **timing)
+    return timing
+
+
+def phase_weakly():
+    import copy
+    import dataclasses
+    import math
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.config import (
+        AlternatingConfig,
+        ClassifierConfig,
+        ExperimentConfig,
+        SegConfig,
+    )
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
+    from weaklysuperviseddl_tpu_torch.pipelines.weakly import run_weakly_supervised_alternating
+    from weaklysuperviseddl_tpu_torch.train.alternating import make_refine_sweep
+    from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch
+
+    cuts = {"classifier.epochs": 2, "seg.epochs": 1, "alternating.num_alternations": 2,
+            "alternating.epochs_per_round": 1, "alternating.refine_repeats": 2}
+    base = ExperimentConfig()
+    cfg = ExperimentConfig(
+        classifier=ClassifierConfig(epochs=2), seg=SegConfig(epochs=1),
+        alternating=AlternatingConfig(num_alternations=2, epochs_per_round=1, refine_repeats=2))
+    d, r = cfg.data, cfg.alternating.refine
+    check((cfg.classifier.depth, cfg.classifier.width_multiplier, cfg.seg.backbone_depth,
+           cfg.seg.width_multiplier, d.image_size, d.seg_size, d.num_classes, r.window_size,
+           r.num_steps, r.loss, d.synthetic_size) ==
+          (50, 1.0, 50, 1.0, 224, 256, 37, 5, 20, "ncut", 128), "weakly config is not full width")
+    check(cfg.data == base.data and cfg.mask == base.mask and r == base.alternating.refine,
+          "weakly config cut more than depth")
+
+    sw = Stopwatch("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0, the pipeline, counts read after ----
+    label_components_cuda.launches = 0
+    refine_cuda.launches = 0
+    t0 = time.perf_counter()
+    result = run_weakly_supervised_alternating(cfg, stopwatch=sw, log=lambda *_: None,
+                                               device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {"refine": refine_cuda.launches, "cc_label": label_components_cuda.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n_train = len(result.mask_store)
+    want_refine = math.ceil(n_train / cfg.seg.batch_size) * 2 * 2
+    check(launches["refine"] == want_refine,
+          f"refine launched {launches['refine']} times on the main path, expected {want_refine}")
+    check(launches["cc_label"] > 0, "the main path never launched the cc kernel")
+    m = result.metrics
+    scalars = {k: m[k] for k in ("iou", "acc", "final_loss", "alt_iou", "alt_acc")}
+    check(all(math.isfinite(v) for v in scalars.values()), f"non-finite metrics {scalars}")
+    check(len(m["trajectory"]) == 2, "one trajectory entry per alternation")
+    images, masks, _ = result.mask_store.as_arrays()
+    check(masks.shape == (n_train, 256, 256) and set(np.unique(masks)) <= {0, 1},
+          "refined store masks are not binary [N,256,256]")
+
+    # ---- one refinement-sweep batch, the card against the CPU, same weights:
+    # at the path's lr (masks cannot move) and at lr 0.1 (they do) ----
+    model = result.seg_state.model.eval()
+    cpu_model = copy.deepcopy(model).cpu()
+    table = torch.arange(4).view(1, 4)
+    agree = {}
+    for lr in (r.lr, 0.1):
+        rl = dataclasses.replace(r, lr=lr)
+        dev_masks = torch.from_numpy(masks[:4]).cuda()
+        cpu_masks = dev_masks.cpu().clone()
+        make_refine_sweep(model, rl, 256)(dev_masks, torch.from_numpy(images[:4]).cuda(),
+                                          table.cuda())
+        make_refine_sweep(cpu_model, rl, 256)(cpu_masks, torch.from_numpy(images[:4]), table)
+        agree[str(lr)] = {"agreement": float((dev_masks.cpu() == cpu_masks).float().mean()),
+                          "changed_frac": float((cpu_masks.numpy() != masks[:4]).mean())}
+        check(agree[str(lr)]["agreement"] >= 0.995,
+              f"card/CPU refinement-sweep agreement {agree[str(lr)]} < 0.995 at lr {lr}")
+    step_ms = seg_step_breakdown(result.seg_state, images[:4], masks[:4])
+
+    phases = {name: {"seconds": sw.times[name], "calls": sw.counts[name],
+                     "img_per_s": sw.rate(name),
+                     **({"first_call_s": sw.first_call_s(name),
+                         "marginal_img_per_s": sw.marginal_rate(name)}
+                        if sw.marginal_rate(name) is not None else {})}
+              for name in sw.times}
+    emit("weakly", entry="run_weakly_supervised_alternating",
+         models="CamClassifier ResNet-50 (37 classes, 224², layer4 dilated); DeepLabV3-ResNet50 "
+                "os8 (2 classes, 256², batch 4); random init (seeds 0 and 1)",
+         refine={"size": 256, "C": 2, "window": r.window_size, "steps": r.num_steps,
+                 "loss": r.loss},
+         cuts=cuts, synthetic_images=d.synthetic_size, train_images=n_train,
+         wall_s=wall, phases=phases, metrics=m, peak_mem_gb=peak_gb,
+         launches_main_path=launches, card_cpu_sweep_agreement=agree,
+         store_fg_frac=float(masks.mean()), seg_step_ms=step_ms)
+    return launches
+
+
+def seg_step_breakdown(state, images, masks) -> dict:
+    """Device ms of the parts of one segmentation training step at batch 4
+    (after the main path; it trains the model further): gather + preprocess,
+    forward + loss, backward, the guarded Adam update (its finite check reads
+    one scalar back), and the whole step; and the sweep's forward and kernel
+    per batch."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.losses.basic import per_example_nll
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
+    from weaklysuperviseddl_tpu_torch.train.segmentation import _prep, seg_train_step
+
+    model, opt = state.model, state.optimizer
+    raw, m = torch.from_numpy(images).cuda(), torch.from_numpy(masks).cuda()
+    x, mm = _prep(raw, m, 256)
+    valid = torch.ones(4, dtype=torch.bool, device="cuda")
+    model.train()
+
+    def forward():
+        logits = model(x.permute(0, 3, 1, 2))
+        return per_example_nll(logits, mm.clamp(0, 1), dim=1).mean()
+
+    def backward():
+        opt.zero_grad()
+        forward().backward()
+
+    out = {"prep_ms": cuda_ms(lambda: _prep(raw, m, 256), runs=10),
+           "forward_loss_ms": cuda_ms(forward, runs=5, warmup=1)}
+    out["forward_backward_ms"] = cuda_ms(backward, runs=5, warmup=1)
+    out["backward_ms"] = out["forward_backward_ms"] - out["forward_loss_ms"]
+    out["adam_guard_ms"] = cuda_ms(opt.step, runs=5, warmup=1)
+    out["step_ms"] = cuda_ms(lambda: seg_train_step(state, x, mm, valid), runs=5, warmup=1)
+    model.eval()
+    with torch.no_grad():
+        S = torch.softmax(model.logits_nhwc(x), dim=-1).contiguous()
+        out["sweep_forward_ms"] = cuda_ms(lambda: torch.softmax(model.logits_nhwc(x), dim=-1),
+                                          runs=5, warmup=1)
+    out["sweep_refine_ms"] = cuda_ms(lambda: refine_cuda(S, x.contiguous(), mm), runs=10)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -357,18 +656,21 @@ def main() -> int:
     phase_build()
     max_err = phase_cc()
     launches, served_masks = phase_serve()
+    refine_timing = phase_refine()
+    weakly_launches = phase_weakly()
 
     from weaklysuperviseddl_tpu_torch.masks.components import label_components
     from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
 
-    # the kernel on the masks the main path gave it: the served argmax [64,256,256]
+    # cc: on the masks the serving path gave it, the served argmax [64,256,256]
     shape = tuple(served_masks.shape)
     kernel_line = {"kernels": [{
         "name": "cc_label",
         "route": "cuda",
         "source": "weaklysuperviseddl_tpu_torch/csrc/cc.cu",
         "replaces": "weaklysuperviseddl_tpu/ops/pallas_cc.py:29",
-        "launches": launches,
+        "launches": launches + weakly_launches["cc_label"],
+        "launches_by_path": {"serve": launches, "weakly": weakly_launches["cc_label"]},
         "max_abs_err": max_err,
         "ms": cuda_ms(lambda: label_components_cuda(served_masks)),
         "plain_ms": cuda_ms(lambda: label_components(served_masks), runs=20, warmup=1),
@@ -376,6 +678,20 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call labels connected components
         "shape": list(shape),
+    }, {
+        "name": "refine",
+        "route": "cuda",
+        "source": "weaklysuperviseddl_tpu_torch/csrc/refine.cu",
+        "replaces": "weaklysuperviseddl_tpu/ops/pallas_refine.py:45",
+        "launches": weakly_launches["refine"],
+        "launches_by_path": {"serve": 0, "weakly": weakly_launches["refine"]},
+        "max_abs_err": refine_timing["max_abs_err"],  # of the loss; masks equal or >= 0.9999
+        "ms": refine_timing["ms"],
+        "plain_ms": refine_timing["plain_ms"],
+        "bound_ms": refine_timing["bound_ms"],
+        "bound_by": refine_timing["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the refinement
+        "shape": refine_timing["shape"],
     }]}
     print(smi, flush=True)
     print(json.dumps(kernel_line), flush=True)

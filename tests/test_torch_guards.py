@@ -59,10 +59,32 @@ def test_entry_points_without_device_raise_when_there_is_no_card(no_cuda):
     assert Predictor(model, size=32, device="cpu").device == torch.device("cpu")
 
 
+def test_training_entry_points_without_device_raise_when_there_is_no_card(no_cuda):
+    from weaklysuperviseddl_tpu_torch.cli import main
+    from weaklysuperviseddl_tpu_torch.config import smoke_config
+    from weaklysuperviseddl_tpu_torch.pipelines.weakly import (
+        run_weakly_supervised,
+        run_weakly_supervised_alternating,
+    )
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["weakly", "--alternating", "--smoke"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_weakly_supervised_alternating(smoke_config())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_weakly_supervised(smoke_config())
+
+
 def test_kernel_wrapper_rejects_cpu_tensors():
     from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
 
     before = label_components_cuda.launches
     with pytest.raises(ValueError, match="CUDA"):
         label_components_cuda(torch.zeros((1, 4, 4), dtype=torch.uint8))
     assert label_components_cuda.launches == before
+    before = refine_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        refine_cuda(torch.zeros((1, 4, 4, 2)), torch.zeros((1, 4, 4, 3)),
+                    torch.zeros((1, 4, 4), dtype=torch.int32))
+    assert refine_cuda.launches == before

@@ -6,7 +6,9 @@ nothing of it. Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card and without that, it raises.
 
 Ported so far: the mask-serving path (``pipelines/serve.py``) with its
-connected-components kernel (``ops/cc.py`` + ``csrc/cc.cu``).
+connected-components kernel (``ops/cc.py`` + ``csrc/cc.cu``), and the
+weakly-supervised alternating cycle (``pipelines/weakly.py``) with the
+mask-refinement kernel (``ops/refine.py`` + ``csrc/refine.cu``).
 """
 
 from weaklysuperviseddl_tpu_torch.device import resolve_device

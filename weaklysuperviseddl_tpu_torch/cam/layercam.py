@@ -1,0 +1,65 @@
+"""LayerCAM, batched (port of weaklysuperviseddl_tpu/cam/layercam.py;
+ref TraditionalModel/LayerCAM.py:7-81 and AlternatingDirectionCutLoss.py:216-318).
+
+The gradients are ``torch.autograd.grad`` of the selected-class logits with
+respect to the target stages' outputs: the counterpart of the JAX package's
+vjp over zero perturbations added to those outputs.
+
+Per layer: ``relu(grad ⊙ act).sum(channels)`` → relu → per-image min-max,
+then either
+  * alpha_mode='per_layer': ``**alpha`` → min-max again, or
+  * alpha_mode='final': nothing per layer; after the mean over layers,
+    ``clamp(0) ** alpha``;
+each layer's CAM is upsampled bilinearly (align_corners=False) to
+``output_size`` before the mean over layers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from weaklysuperviseddl_tpu_torch.ops.resize import resize_bilinear
+
+
+def _minmax(cam: torch.Tensor) -> torch.Tensor:
+    """Per-image min-max over the trailing two dims: c -= min; c /= (max + 1e-8)."""
+    cam = cam - cam.amin(dim=(-2, -1), keepdim=True)
+    return cam / (cam.amax(dim=(-2, -1), keepdim=True) + 1e-8)
+
+
+def layercam(model, images: torch.Tensor, class_idx: torch.Tensor | None,
+             target_layers=("layer3", "layer4"), alpha: float = 1.0,
+             alpha_mode: str = "per_layer", output_size: int = 224, fusion: str = "auto"):
+    """``model``: a ``CamClassifier``. images [B,H,W,3]; class_idx [B] or None
+    (→ argmax of the logits). Returns (cam [B,S,S] float32 in [0,1], logits
+    [B,K]), both without gradient."""
+    if fusion == "pallas":
+        raise NotImplementedError("fusion='pallas' needs the CAM-fusion kernel K5, "
+                                  "which is not ported yet")
+    if fusion not in ("auto", "xla"):
+        raise ValueError(f"unknown fusion {fusion!r}")
+    if alpha_mode not in ("per_layer", "final"):
+        raise ValueError(f"unknown alpha_mode {alpha_mode!r}")
+    # the input is a leaf that asks for a gradient, so the activations carry a
+    # graph whatever the parameters' requires_grad flags are
+    x = images.permute(0, 3, 1, 2).detach().requires_grad_(True)
+    with torch.enable_grad():
+        logits, feats = model.features(x)
+        acts = [feats[name] for name in target_layers]
+        if class_idx is None:
+            class_idx = logits.argmax(dim=1)
+        score = logits.gather(1, class_idx.long().view(-1, 1)).sum()
+        grads = torch.autograd.grad(score, acts)
+
+    with torch.no_grad():
+        layer_cams = []
+        for act, grad in zip(acts, grads):
+            cam = torch.relu(grad * act).sum(dim=1)          # [B,h,w]
+            cam = _minmax(torch.relu(cam))
+            if alpha_mode == "per_layer":
+                cam = _minmax(cam ** alpha)
+            layer_cams.append(resize_bilinear(cam, (output_size, output_size), axes=(1, 2)))
+        final = sum(layer_cams) / len(layer_cams)
+        if alpha_mode == "final":
+            final = final.clamp(min=0.0) ** alpha
+    return final.float(), logits.detach()

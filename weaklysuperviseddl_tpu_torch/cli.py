@@ -1,11 +1,16 @@
 """Command-line entry points of the port (the ported subset of
 weaklysuperviseddl_tpu/cli.py):
 
+    python -m weaklysuperviseddl_tpu_torch weakly [--alternating] [--smoke] [--device cpu]
+        [--timings-out PATH] [--data.image_size 224 --seg.epochs 5 ...]
     python -m weaklysuperviseddl_tpu_torch serve [--smoke] [--device cpu] [--port 8765]
     python -m weaklysuperviseddl_tpu_torch client --url http://host:8765 --image photo.jpg
 
-``serve`` runs on the card unless ``--device cpu`` is given. It serves float32
-with TF32 off for cuDNN convolutions and matmuls.
+``weakly`` and ``serve`` run on the card unless ``--device cpu`` is given,
+in float32 with TF32 off for cuDNN convolutions and matmuls. ``weakly`` takes
+dotted overrides onto ``config.ExperimentConfig`` (any depth:
+``--alternating.refine.num_steps 10``), prints the metrics as one JSON line,
+and with ``--timings-out`` writes the per-phase record of the run.
 """
 
 from __future__ import annotations
@@ -14,6 +19,66 @@ import argparse
 import json
 import os
 import sys
+
+
+def _weakly(args, parser, extra) -> int:
+    import dataclasses
+    import time
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.config import ExperimentConfig, apply_overrides, smoke_config
+    from weaklysuperviseddl_tpu_torch.device import resolve_device
+    from weaklysuperviseddl_tpu_torch.pipelines.weakly import (
+        run_weakly_supervised,
+        run_weakly_supervised_alternating,
+    )
+    from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch
+
+    overrides = {}
+    it = iter(extra)
+    for token in it:
+        if not token.startswith("--"):
+            parser.error(f"weakly: unexpected argument {token!r}")
+        value = next(it, None)
+        if value is None:
+            parser.error(f"weakly: {token} needs a value")
+        overrides[token[2:]] = value
+    cfg = apply_overrides(smoke_config() if args.smoke else ExperimentConfig(), overrides)
+    device = resolve_device(args.device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sw = Stopwatch(device)
+    t0 = time.perf_counter()
+    if args.alternating:
+        result = run_weakly_supervised_alternating(cfg, stopwatch=sw, device=device)
+    else:
+        result = run_weakly_supervised(cfg, stopwatch=sw, device=device)
+    wall = time.perf_counter() - t0
+    if args.timings_out:
+        record = {
+            "cmd": "python -m weaklysuperviseddl_tpu_torch weakly"
+                   + (" --alternating" if args.alternating else ""),
+            "config": dataclasses.asdict(cfg),
+            "device": torch.cuda.get_device_name(device) if device.type == "cuda" else str(device),
+            "wall_clock_s": round(wall, 2),
+            "phases": {
+                name: {
+                    "seconds": round(sw.times[name], 3),
+                    "calls": sw.counts[name],
+                    "img_per_s": round(sw.rate(name), 2),
+                    **({"first_call_s": round(sw.first_call_s(name), 3),
+                        "marginal_img_per_s": round(sw.marginal_rate(name), 2)}
+                       if sw.marginal_rate(name) is not None else {}),
+                } for name in sw.times
+            },
+            "metrics": result.metrics,
+        }
+        with open(args.timings_out, "w") as f:
+            json.dump(record, f, indent=1)
+        sw.report()
+    print(json.dumps(result.metrics))
+    return 0
 
 
 def _serve(args, parser) -> int:
@@ -95,13 +160,19 @@ def _client(args, parser) -> int:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="weaklysuperviseddl_tpu_torch")
-    parser.add_argument("command", choices=["serve", "client"])
+    parser.add_argument("command", choices=["weakly", "serve", "client"])
     parser.add_argument("--smoke", action="store_true",
-                        help="serve: depth 18, width 0.25, 48², max_batch 2, one "
-                             "self-request, then exit")
+                        help="weakly: config.smoke_config(); serve: depth 18, width 0.25, "
+                             "48², max_batch 2, one self-request, then exit")
     parser.add_argument("--device", default=None,
-                        help="serve: torch device (default: the card; 'cpu' to run "
+                        help="weakly, serve: torch device (default: the card; 'cpu' to run "
                              "on the CPU)")
+    parser.add_argument("--alternating", action="store_true",
+                        help="weakly: run the alternating train↔refine loop after the "
+                             "initial cycle")
+    parser.add_argument("--timings-out", default=None,
+                        help="weakly: write a per-phase seconds and img/s JSON record of "
+                             "this run")
     parser.add_argument("--checkpoint", default=None,
                         help="serve: weights to load (not ported yet); random init "
                              "if omitted")
@@ -122,7 +193,11 @@ def main(argv=None) -> int:
                         help="client: response wire format")
     parser.add_argument("--stats", action="store_true",
                         help="client: print the server's /healthz and /stats JSON")
-    args = parser.parse_args(list(sys.argv[1:] if argv is None else argv))
+    args, extra = parser.parse_known_args(list(sys.argv[1:] if argv is None else argv))
+    if args.command == "weakly":
+        return _weakly(args, parser, extra)
+    if extra:
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
     if args.command == "serve":
         return _serve(args, parser)
     return _client(args, parser)

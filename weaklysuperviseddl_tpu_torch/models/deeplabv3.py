@@ -22,13 +22,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from weaklysuperviseddl_tpu_torch.models.resnet import ResNetBackbone
+from weaklysuperviseddl_tpu_torch.models.resnet import BatchNorm2d, ResNetBackbone
 
 
 def _conv_bn_relu(cin, cout, kernel=1, rate=1):
     return [nn.Conv2d(cin, cout, kernel, padding=rate if kernel == 3 else 0,
                       dilation=rate, bias=False),
-            nn.BatchNorm2d(cout), nn.ReLU()]
+            BatchNorm2d(cout), nn.ReLU()]
 
 
 class ASPP(nn.Module):

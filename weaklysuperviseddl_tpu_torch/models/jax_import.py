@@ -1,12 +1,14 @@
 """JAX variable tree → the port's ``state_dict`` (carries weights across).
 
-The exact inverse of the JAX package's ``models/torch_import.deeplab_variables``:
-it takes the JAX DeepLabV3's ``{"params", "batch_stats"}`` with numpy leaves and
-returns the torchvision-layout state dict that ``models/deeplabv3.DeepLabV3``
+The exact inverses of the JAX package's ``models/torch_import.deeplab_variables``
+and ``cam_classifier_variables``: they take the JAX model's ``{"params",
+"batch_stats"}`` with numpy leaves and return the torchvision-layout state
+dict that ``models/deeplabv3.DeepLabV3`` or ``models/classifier.CamClassifier``
 loads. Only numpy crosses between the two packages.
 
 Layout conversions:
   conv kernel (kh,kw,I,O)   → weight (O,I,kh,kw)
+  dense kernel (I,O)        → weight (O,I)
   bn   scale/bias           → weight/bias
        batch_stats mean/var → running_mean/running_var (+ num_batches_tracked 0)
 Key rewrites: ``layerX_Y`` → ``layerX.Y``; ``downsample_conv/bn`` →
@@ -58,11 +60,27 @@ def _module_name(path: str) -> str:
 
 def deeplab_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
     """JAX DeepLabV3 ``{"params", "batch_stats"}`` → the port's state dict."""
+    return _state_dict(variables["params"], variables["batch_stats"])
+
+
+def cam_classifier_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX CamClassifier ``{"params": {"backbone", "fc"}, "batch_stats":
+    {"backbone"}}`` → the port's ``CamClassifier`` state dict, the inverse of
+    ``torch_import.cam_classifier_variables``: the backbone at top level, the
+    Dense kernel (I,O) → the Linear weight (O,I)."""
+    params = dict(variables["params"]["backbone"])
+    params["fc"] = variables["params"]["fc"]
+    return _state_dict(params, variables["batch_stats"]["backbone"])
+
+
+def _state_dict(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
-    for path, value in _flatten(variables["params"]).items():
+    for path, value in _flatten(params).items():
         module, leaf = path.rsplit(".", 1)
         name = _module_name(module)
-        if leaf == "kernel":
+        if leaf == "kernel" and value.ndim == 2:  # Dense
+            sd[f"{name}.weight"] = torch.from_numpy(value.T.copy())
+        elif leaf == "kernel":
             if value.ndim != 4:
                 raise ValueError(f"unexpected kernel rank for {path}: {value.shape}")
             sd[f"{name}.weight"] = torch.from_numpy(value.transpose(3, 2, 0, 1).copy())
@@ -72,7 +90,7 @@ def deeplab_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
             sd[f"{name}.bias"] = torch.from_numpy(value.copy())
         else:
             raise ValueError(f"unhandled parameter {path}")
-    for path, value in _flatten(variables["batch_stats"]).items():
+    for path, value in _flatten(batch_stats).items():
         module, leaf = path.rsplit(".", 1)
         name = _module_name(module)
         if leaf not in ("mean", "var"):

@@ -3,7 +3,9 @@
 torchvision's module and state-dict layout (``conv1``, ``bn1``,
 ``layerX.Y.*``, ``downsample.0/1``), so the JAX package's torch importer reads
 the port's ``state_dict()`` unchanged. BN eps 1e-5; the max-pool pads with
--inf, as torch's does.
+-inf, as torch's does. ``BatchNorm2d`` updates its running variance in
+training with the biased batch variance, as flax does (torch's own uses the
+unbiased one).
 
 Dilation follows torchvision's ``_make_layer``: when a stage is dilated its
 first block keeps the *previous* dilation and its stride collapses to 1; the
@@ -19,9 +21,32 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}
 BOTTLENECK_DEPTHS = (50,)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running-statistics update in training:
+    running = 0.9·running + 0.1·batch, where the batch variance is the biased
+    one (torch's own module uses the unbiased one, which at the ASPP pooling
+    branch, 4 values per channel at batch 4, is 4/3 too large). Eval mode and
+    the state-dict keys are ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            dims = [0] + list(range(2, x.ndim))
+            xf = x.float()
+            mean = xf.mean(dim=dims)
+            var = xf.var(dim=dims, unbiased=False)
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 def _conv(cin, cout, kernel, stride=1, dilation=1):
@@ -37,9 +62,9 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes, planes, stride=1, dilation=1, downsample=None):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride, dilation)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3, 1, dilation)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = downsample
 
     def forward(self, x):
@@ -57,11 +82,11 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes, planes, stride=1, dilation=1, downsample=None):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 1)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3, stride, dilation)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = _conv(planes, planes * 4, 1)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.downsample = downsample
 
     def forward(self, x):
@@ -86,7 +111,7 @@ class ResNetBackbone(nn.Module):
         block = Bottleneck if depth in BOTTLENECK_DEPTHS else BasicBlock
         stem = self._width(64)
         self.conv1 = nn.Conv2d(3, stem, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(stem)
+        self.bn1 = BatchNorm2d(stem)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
 
         inplanes, dilation = stem, 1
@@ -100,7 +125,7 @@ class ResNetBackbone(nn.Module):
             out_ch = planes * block.expansion
             downsample = None
             if stride != 1 or inplanes != out_ch:
-                downsample = nn.Sequential(_conv(inplanes, out_ch, 1, stride), nn.BatchNorm2d(out_ch))
+                downsample = nn.Sequential(_conv(inplanes, out_ch, 1, stride), BatchNorm2d(out_ch))
             blocks = [block(inplanes, planes, stride, previous_dilation, downsample)]
             blocks += [block(out_ch, planes, 1, dilation) for _ in range(1, num_blocks)]
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
@@ -126,12 +151,13 @@ class ResNetBackbone(nn.Module):
 
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random weights: convolutions from N(0, 1/fan_in) (LeCun normal),
-    biases zero, BN at identity (scale 1, shift 0, mean 0, var 1). Drawn on the
-    CPU from ``generator`` so a seed gives the same weights on any device."""
+    """Seeded random weights: convolutions and linear layers from
+    N(0, 1/fan_in) (LeCun normal), biases zero, BN at identity (scale 1, shift
+    0, mean 0, var 1). Drawn on the CPU from ``generator`` so a seed gives the
+    same weights on any device."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
             w = torch.randn(m.weight.shape, generator=generator) * fan_in ** -0.5
             m.weight.copy_(w)
             if m.bias is not None:

@@ -1,0 +1,189 @@
+"""Alternating-direction mask refinement on the card: the wrapper of
+``csrc/refine.cu``, and its plain PyTorch version.
+
+Port of the TPU kernel ``weaklysuperviseddl_tpu/ops/pallas_refine.py::_refine_kernel``
+(``pallas_refine``, plans v1/v1sym). Per image: X = one_hot(mask); ``num_steps``
+Adam steps (β 0.9/0.999, eps 1e-8, bias-corrected) on
+
+    KL(S ‖ softmax X) + λ·W,   λ = λ_b·KL/(W + 1e-6) (a stop-gradient scalar),
+
+W the 24-offset colour-affinity window loss of ``losses/window.py`` (ncut:
+of softmax(softmax X); boundary: of softmax X, with a spatial term); then
+mask = softmax(X)[1] > threshold.
+
+``refine_plain`` is the autograd path of ``train/refine.py:100-135`` batched,
+λ per image as under ``vmap``. ``refine_cuda`` launches the hand-written
+kernel (one call per batch; the C entry point runs its launches in stream
+order and returns the first CUDA error); ``train/refine.py`` picks one. The
+kernel is built with ``nvcc`` at first use (``ops/build.py``) and loaded
+with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from weaklysuperviseddl_tpu_torch.losses.window import (
+    boundary_per_image,
+    local_normalized_cut_per_image,
+    window_offsets,
+)
+from weaklysuperviseddl_tpu_torch.ops.build import build
+
+SOURCE = "refine.cu"
+MAX_CLASSES = 4      # the kernel's compile-time class counts: 2, 3, 4
+MAX_WINDOW = 7       # windows 3, 5 and 7
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build(SOURCE)))
+        lib.wsdl_refine.argtypes = (
+            [ctypes.c_void_p] * 4          # S, images, masks (int32), out (uint8)
+            + [ctypes.c_void_p] * 6        # X, M, V, G, partials, loss_acc (scratch)
+            + [ctypes.c_int] * 6           # B, H, W, C, window, num_steps
+            + [ctypes.c_int]               # double_softmax
+            + [ctypes.c_float] * 5         # inv2sc, normW, lambda_b, lr, threshold
+            + [ctypes.c_void_p]            # float spatial[MAX_WINDOW²] (host)
+            + [ctypes.c_void_p]            # stream
+        )
+        lib.wsdl_refine.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _constants(H: int, W: int, C: int, window_size: int, loss: str,
+               sigma_color: float, sigma_space: float):
+    """(double_softmax, inv2sc, normW, sigma_space or None) of the loss variant."""
+    K = len(window_offsets(window_size))
+    if loss == "boundary":
+        return False, 1.0 / (2.0 * sigma_color ** 2), 1.0 / (H * W * K), sigma_space
+    if loss == "ncut":
+        return True, 1.0 / (2.0 * sigma_color ** 2), 1.0 / (H * W * K * C), None
+    raise ValueError(f"unknown refinement loss {loss!r}")
+
+
+def _kl_per_image(q: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+    """Σ S·log S − S·log(q + 1e-8) per image (F.kl_div batchmean of one image)."""
+    p_log_p = torch.where(S > 0, S * torch.log(torch.where(S > 0, S, torch.ones_like(S))),
+                          torch.zeros_like(S))
+    return (p_log_p - S * torch.log(q + 1e-8)).sum(dim=(1, 2, 3))
+
+
+def refine_plain(S, images, masks, lambda_boundary=0.1, threshold=0.5, lr=1e-2,
+                 num_steps=20, sigma_color=0.1, sigma_space=5.0, window_size=5,
+                 loss="ncut"):
+    """The plain PyTorch version: autograd through the window loss, Adam
+    written out (the formula optax and the kernel use). Returns (uint8
+    [B,H,W], mean over images of Σ_steps loss)."""
+    C = S.shape[-1]
+    S = S.float()
+    images = images.float()
+    x = torch.nn.functional.one_hot(masks.long(), C).float()
+    m = torch.zeros_like(x)
+    v = torch.zeros_like(x)
+    totals = torch.zeros(S.shape[0], dtype=torch.float32, device=S.device)
+    for t in range(num_steps):
+        with torch.enable_grad():
+            x.requires_grad_(True)
+            q = torch.softmax(x, dim=-1)
+            kl = _kl_per_image(q, S)
+            if loss == "boundary":
+                w = boundary_per_image(q, images, sigma_color, sigma_space, window_size)
+            elif loss == "ncut":
+                # the reference's double softmax: the criterion softmaxes again
+                w = local_normalized_cut_per_image(q, images, sigma_color, window_size)
+            else:
+                raise ValueError(f"unknown refinement loss {loss!r}")
+            lam = lambda_boundary * kl.detach() / (w.detach() + 1e-6)
+            per_image = kl + lam * w
+            (g,) = torch.autograd.grad(per_image.sum(), x)
+        x = x.detach()
+        totals = totals + per_image.detach()
+        bc1 = 1.0 - ADAM_B1 ** (t + 1)
+        bc2 = 1.0 - ADAM_B2 ** (t + 1)
+        m = ADAM_B1 * m + (1.0 - ADAM_B1) * g
+        v = ADAM_B2 * v + (1.0 - ADAM_B2) * (g * g)
+        x = x - lr * ((m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS))
+    refined = (torch.softmax(x, dim=-1)[..., 1] > threshold).to(torch.uint8)
+    return refined, totals.mean()
+
+
+def refine_cuda(S, images, masks, lambda_boundary=0.1, threshold=0.5, lr=1e-2,
+                num_steps=20, sigma_color=0.1, sigma_space=5.0, window_size=5,
+                loss="ncut"):
+    """The kernel: S [B,H,W,C] float32, images [B,H,W,3] float32, masks
+    [B,H,W] integer, all contiguous CUDA tensors on one device → (uint8
+    [B,H,W], mean loss as a 0-dim tensor), launched on the current stream
+    without synchronising. Raises on anything the kernel does not take."""
+    for name, t in (("S", S), ("images", images), ("masks", masks)):
+        if t.device.type != "cuda":
+            raise ValueError(f"refine_cuda needs CUDA tensors, {name} is on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"refine_cuda needs contiguous tensors ({name} is not)")
+    if S.dtype != torch.float32 or images.dtype != torch.float32:
+        raise TypeError(f"refine_cuda takes float32 S and images, got {S.dtype}, {images.dtype}")
+    if masks.dtype not in (torch.uint8, torch.int32, torch.int64):
+        raise TypeError(f"refine_cuda takes uint8/int32/int64 masks, got {masks.dtype}")
+    if S.ndim != 4 or images.ndim != 4 or masks.ndim != 3:
+        raise ValueError("refine_cuda takes S [B,H,W,C], images [B,H,W,3], masks [B,H,W]")
+    B, H, W, C = S.shape
+    if images.shape != (B, H, W, 3) or masks.shape != (B, H, W):
+        raise ValueError(f"shapes disagree: S {tuple(S.shape)}, images "
+                         f"{tuple(images.shape)}, masks {tuple(masks.shape)}")
+    if not 2 <= C <= MAX_CLASSES:
+        raise ValueError(f"refine_cuda takes 2..{MAX_CLASSES} classes, got {C}")
+    if window_size % 2 == 0 or not 3 <= window_size <= MAX_WINDOW:
+        raise ValueError(f"refine_cuda takes odd windows 3..{MAX_WINDOW}, got {window_size}")
+    pad = window_size // 2
+    if H <= pad or W <= pad:
+        raise ValueError(f"reflect padding needs H and W > {pad}, got {H}x{W}")
+    if B > 65535 or B * H * W * C >= 2**31:
+        raise ValueError(f"batch {tuple(S.shape)} is too large for one launch")
+    if S.device != images.device or S.device != masks.device:
+        raise ValueError("S, images and masks must be on one device")
+    if num_steps < 0:
+        raise ValueError("num_steps must be >= 0")
+    double_softmax, inv2sc, normW, sspace = _constants(H, W, C, window_size, loss,
+                                                       sigma_color, sigma_space)
+    dev = S.device
+    out = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
+    loss_acc = torch.zeros((B,), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out, loss_acc.sum()
+    masks32 = masks.to(torch.int32).contiguous()
+    x = torch.empty((B, H, W, C), dtype=torch.float32, device=dev)
+    m = torch.empty_like(x)
+    v = torch.empty_like(x)
+    g = torch.empty_like(x)
+    tiles = ((H + 15) // 16) * ((W + 15) // 16)
+    partials = torch.empty((B, tiles, 2), dtype=torch.float32, device=dev)
+    # the spatial term of every offset, rounded to float32 as the plain version's is
+    spatial = (ctypes.c_float * (MAX_WINDOW * MAX_WINDOW))()
+    for i, (dy, dx) in enumerate((dy, dx) for dy in range(-pad, pad + 1)
+                                 for dx in range(-pad, pad + 1)):
+        spatial[i] = 0.0 if sspace is None else (dy * dy + dx * dx) / (2.0 * sspace ** 2)
+    lib = _load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.wsdl_refine(
+            S.data_ptr(), images.data_ptr(), masks32.data_ptr(), out.data_ptr(),
+            x.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(), partials.data_ptr(),
+            loss_acc.data_ptr(), B, H, W, C, window_size, num_steps, int(double_softmax),
+            inv2sc, normW, lambda_boundary, lr, threshold,
+            ctypes.addressof(spatial), stream)
+    if err != 0:
+        raise RuntimeError(f"refine launch failed with cudaError {err}")
+    refine_cuda.launches += 1
+    return out, loss_acc.mean()
+
+
+refine_cuda.launches = 0  # batches refined by the kernel since the last reset
+

@@ -1,0 +1,158 @@
+"""The weakly-supervised cycle: classify → LayerCAM → pseudo-masks → segment,
+then the alternating train ↔ refine loop (port of
+weaklysuperviseddl_tpu/pipelines/weakly.py; ref AlternatingDirectionCutLoss.py:468-821).
+
+Every entry point runs on the card unless ``device="cpu"`` is given, and
+raises without a card. The port runs on one device: a ``MeshConfig`` other
+than data ∈ {-1, 1}, model == 1 raises. Not ported yet: ``resume`` and
+``checkpoint_dir`` (``utils/checkpoint.py``), the dense CRF, the Lovász loss,
+``seg.bn_frozen`` and compute types other than float32.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+import torch
+
+from weaklysuperviseddl_tpu_torch.config import ExperimentConfig
+from weaklysuperviseddl_tpu_torch.data.dataset import download_data, load_split_data
+from weaklysuperviseddl_tpu_torch.data.loader import batches, stack_dataset
+from weaklysuperviseddl_tpu_torch.device import resolve_device
+from weaklysuperviseddl_tpu_torch.masks.pseudo import generate_pseudo_masks
+from weaklysuperviseddl_tpu_torch.models.classifier import CamClassifier
+from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
+from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
+from weaklysuperviseddl_tpu_torch.train.alternating import run_alternating_training
+from weaklysuperviseddl_tpu_torch.train.classifier import train_fc_only
+from weaklysuperviseddl_tpu_torch.train.segmentation import (
+    create_seg_state,
+    evaluate_segmentation_dataset,
+    train_segmentation_model,
+)
+from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch
+
+
+@dataclass
+class WeaklySupervisedResult:
+    classifier: Any
+    seg_state: Any
+    mask_store: Any
+    metrics: dict = field(default_factory=dict)
+    test_arrays: Any = None
+
+
+def check_supported(cfg: ExperimentConfig):
+    """Raise on the parts of the config the port does not run yet."""
+    if cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1:
+        raise ValueError(f"the port runs on one device; MeshConfig {cfg.mesh} needs "
+                         "parallel/mesh.py, which is not ported yet")
+    if cfg.classifier.dtype != "float32" or cfg.seg.dtype != "float32":
+        raise NotImplementedError("the port computes in float32 only so far")
+    if cfg.seg.bn_frozen:
+        raise NotImplementedError("seg.bn_frozen is not ported yet")
+    if cfg.seg.loss_fn != "cross_entropy":
+        raise NotImplementedError(f"seg.loss_fn={cfg.seg.loss_fn!r} is not ported yet "
+                                  "(M7's Lovász port)")
+    if cfg.mask.use_crf:
+        raise NotImplementedError("mask.use_crf needs the dense CRF (M9) with its kernel "
+                                  "K3, which are not ported yet")
+
+
+def build_classifier(cfg: ExperimentConfig, device) -> CamClassifier:
+    model = CamClassifier(num_classes=cfg.data.num_classes, depth=cfg.classifier.depth,
+                          width_multiplier=cfg.classifier.width_multiplier,
+                          dilate_layer4=cfg.classifier.dilate_layer4)
+    init_weights(model, torch.Generator().manual_seed(cfg.seed))
+    return model.to(device)
+
+
+def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch | None = None,
+                          device=None) -> WeaklySupervisedResult:
+    """The weakly-supervised cycle at the configured scale: trained models,
+    the pseudo-mask store and the eval metrics. ``stopwatch`` times each
+    stage of this code path in place."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    sw = stopwatch if stopwatch is not None else Stopwatch(dev)
+    d = cfg.data
+    with sw.phase("data", images=d.synthetic_size):
+        train_ds, val_ds = load_split_data(
+            d.root, train_ratio=d.train_ratio, seed=d.seed, synthetic_size=d.synthetic_size,
+            image_size=d.image_size, num_classes=d.num_classes)
+        test_ds = download_data(d.root, split="test", synthetic_size=max(16, d.synthetic_size // 4),
+                                image_size=d.image_size, seed=d.seed, num_classes=d.num_classes)
+
+    # --- stage 1: frozen-backbone classifier ---------------------------------
+    model = build_classifier(cfg, dev)
+    log("Starting training...")
+    with sw.phase("classifier_fc_training", images=len(train_ds) * cfg.classifier.epochs):
+        train_fc_only(
+            model,
+            train_loader_fn=lambda: batches(train_ds, d.batch_size, shuffle=True, seed=d.seed,
+                                            pad_to_full=True),
+            val_loader_fn=lambda: batches(val_ds, d.eval_batch_size),
+            epochs=cfg.classifier.epochs, lr=cfg.classifier.lr, num_classes=d.num_classes,
+            image_size=d.image_size, interpolation=d.interpolation, log=log)
+    log(" Classifier trained.")
+
+    # --- stage 2+3: LayerCAM → pseudo-masks ----------------------------------
+    with sw.phase("pseudo_mask_generation", images=min(cfg.mask.max_images, len(train_ds))):
+        store = generate_pseudo_masks(
+            batches(train_ds, d.batch_size, pad_to_full=True), model,
+            cam_thresh=cfg.mask.cam_thresh, alpha=cfg.cam.alpha,
+            keep_largest_masks=cfg.mask.keep_largest, target_layers=cfg.cam.target_layers,
+            alpha_mode=cfg.cam.alpha_mode, image_size=d.image_size,
+            max_images=cfg.mask.max_images, store_dir=cfg.mask.store_dir)
+    log(f"Pseudo masks generated: {len(store)}")
+
+    # --- stage 4: DeepLabV3 on the pseudo-masks -------------------------------
+    seg_model = DeepLabV3(num_classes=cfg.seg.num_classes, backbone_depth=cfg.seg.backbone_depth,
+                          width_multiplier=cfg.seg.width_multiplier)
+    seg_state = create_seg_state(seg_model, seed=cfg.seed + 1, lr=cfg.seg.lr, device=dev)
+    images, masks, _ = store.as_arrays()
+    with sw.phase("seg_training", images=len(store) * cfg.seg.epochs):
+        seg_state, final_loss = train_segmentation_model(
+            seg_state, images, masks, loss_fn=cfg.seg.loss_fn, num_epochs=cfg.seg.epochs,
+            batch_size=cfg.seg.batch_size, seg_size=d.seg_size, seed=cfg.seed, log=log)
+
+    # --- stage 5: eval against the true trimaps ------------------------------
+    test_images, _, test_trimaps = stack_dataset(test_ds)
+    test_arrays = (torch.from_numpy(test_images).to(dev), torch.from_numpy(test_trimaps).to(dev))
+    with sw.phase("eval", images=len(test_ds)):
+        avg_iou, avg_acc = evaluate_segmentation_dataset(
+            seg_state.model, *test_arrays, batch_size=d.eval_batch_size, seg_size=d.seg_size,
+            eval_size=d.image_size, log=log)
+    metrics = {"iou": avg_iou, "acc": avg_acc, "final_loss": final_loss}
+    return WeaklySupervisedResult(model, seg_state, store, metrics, test_arrays)
+
+
+def run_weakly_supervised_alternating(cfg: ExperimentConfig, checkpoint_dir: str | None = None,
+                                      resume: bool = False, stopwatch: Stopwatch | None = None,
+                                      log=print, device=None) -> WeaklySupervisedResult:
+    """The whole main path: the cycle above, then the alternating train ↔
+    refine loop over the pseudo-mask store with an eval per alternation."""
+    if resume or checkpoint_dir is not None:
+        raise NotImplementedError("resume and checkpoint_dir need utils/checkpoint.py, "
+                                  "which is not ported yet")
+    check_supported(cfg)
+    dev = resolve_device(device)
+    sw = stopwatch if stopwatch is not None else Stopwatch(dev)
+    d = cfg.data
+    result = run_weakly_supervised(cfg, log=log, stopwatch=sw, device=dev)
+    test_arrays = result.test_arrays
+
+    def eval_fn(state):
+        return evaluate_segmentation_dataset(state.model, *test_arrays,
+                                             batch_size=d.eval_batch_size,
+                                             seg_size=d.seg_size, eval_size=d.image_size)
+
+    trajectory: list = []
+    state, store = run_alternating_training(
+        result.seg_state, result.mask_store, cfg, eval_fn=eval_fn,
+        eval_images=int(test_arrays[0].shape[0]), stopwatch=sw, trajectory=trajectory, log=log)
+    iou, acc = eval_fn(state)
+    result.seg_state, result.mask_store = state, store
+    result.metrics.update({"alt_iou": iou, "alt_acc": acc, "trajectory": trajectory})
+    return result
