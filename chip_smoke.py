@@ -38,6 +38,31 @@ Phases, one JSON line each:
                refinement-sweep batch on the card against the same weights on
                the CPU, at the path's lr and at lr 0.1 (mask agreement >= 0.995),
                and a device-time breakdown of one training step.
+  7. crf     - the bilateral-filter kernel against its plain PyTorch version on
+               the card: ragged 531x187 with d 5 and C 1, 2, 3; d 20 with C 128;
+               a batch of 3 with different features per image (rtol 1e-4, atol
+               1e-5); the reference's magnitudes against a float64 sum (max
+               error < 1e-3 of the largest output); the path's shape
+               [32,50176]x[32,12544], d 5, C 2, against the plain version on 2
+               of the 32 images (rtol 1e-4) and two launches bit-identical.
+               Times with CUDA events beside the bound.
+  8. cam_fusion - the LayerCAM-fusion kernel against its plain version at the
+               full-width classifier's layer3 and layer4 shapes (its own
+               activations and gradients on synthetic pets) and at a ragged
+               [2,130,7,9] (atol 1e-5); then the path: layercam(fusion="pallas")
+               against fusion="xla" at 224², batch 32 (atol 1e-5), the kernel's
+               count reset just before and read just after. Times beside the
+               bound.
+  9. weakly_crf - the CRF pseudo-mask path through
+               run_weakly_supervised_alternating at full width: as weakly, with
+               mask.use_crf (the reference's parameters: subsampled, stride 2, 5
+               iterations, sigma 1/50/5, compat 2/10) and seg.loss_fn
+               lovasz_softmax; every kernel's count reset just before and read
+               just after (the bilateral kernel must launch ceil(n/32)*6 times);
+               then on 32 train images with the run's classifier: CRF masks from
+               the kernel against the plain filter on the card (>= 0.999), the
+               card against the CPU on 2 images (>= 0.999), and subsampled
+               against attention per image (mean >= 0.99).
 Then the card's name and power limit, the kernels line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: no result is
 printed. Exits non-zero without a CUDA device.
@@ -56,6 +81,10 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
+# the reference's CRF parameters (AlternatingDirectionCutLoss.py:183-204) and
+# the config's default backend
+CRF_REFERENCE = dict(gauss_sxy=1.0, gauss_compat=2.0, bilat_sxy=50.0, bilat_srgb=5.0,
+                     bilat_compat=10.0, n_iters=5, bilat_backend="subsampled", key_stride=2)
 
 
 def emit(phase: str, **fields):
@@ -644,6 +673,322 @@ def seg_step_breakdown(state, images, masks) -> dict:
     return out
 
 
+def bilateral_work(B: int, Nq: int, Nk: int, d: int, C: int):
+    """(bytes, fp32 operations) of one exact filter call, from its shapes.
+    Bytes: the query and key features and the values read once, the output
+    written once. Operations per key pair, as the kernel computes them: d
+    subtractions, d FMAs (2 each), the multiply by -1/2, the exp (1), and C
+    FMAs (2 each)."""
+    ops = B * Nq * Nk * (3 * d + 2 + 2 * C)
+    nbytes = 4 * B * (Nq * d + Nk * d + Nk * C + Nq * C)
+    return nbytes, ops
+
+
+def roofline(nbytes: float, ops: float):
+    """(least ms, what binds it) over the card's HBM and fp32 rates."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def crf_path_inputs(n: int, size: int, stride: int, seed: int):
+    """Bilateral features of n synthetic pets at size² (queries: every pixel;
+    keys: the stride grid) at the reference's sigmas, and uniform values."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.data.synthetic import synthetic_pet_arrays
+    from weaklysuperviseddl_tpu_torch.masks.densecrf import _bilateral_features
+
+    images, _, _ = synthetic_pet_arrays(n, image_size=size, seed=seed)
+    feats = _bilateral_features(torch.from_numpy(images * 255).cuda(),
+                                CRF_REFERENCE["bilat_sxy"], CRF_REFERENCE["bilat_srgb"])
+    fq = feats.reshape(n, -1, 5).contiguous()
+    fk = feats[:, ::stride, ::stride].reshape(n, -1, 5).contiguous()
+    rng = np.random.default_rng(seed)
+    v = torch.from_numpy(rng.uniform(0, 1, (n, fk.shape[1], 2)).astype(np.float32)).cuda()
+    return fq, fk, v
+
+
+def phase_crf():
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import (
+        gaussian_filter_cuda,
+        gaussian_filter_plain_cross,
+    )
+
+    small = []
+    for B, Nq, Nk, d, C, scale in ((1, 531, 187, 5, 1, 20.0), (1, 531, 187, 5, 2, 20.0),
+                                   (1, 531, 187, 5, 3, 20.0), (1, 531, 187, 20, 128, 4.0),
+                                   (3, 300, 129, 5, 2, 20.0)):
+        rng = np.random.default_rng(len(small))
+        fq, fk, v = (torch.from_numpy(a).cuda() for a in (
+            rng.uniform(0, scale, (B, Nq, d)).astype(np.float32),
+            rng.uniform(0, scale, (B, Nk, d)).astype(np.float32),
+            rng.uniform(0, 1, (B, Nk, C)).astype(np.float32)))
+        got = gaussian_filter_cuda(fq, fk, v)
+        again = gaussian_filter_cuda(fq, fk, v)
+        want = torch.stack([gaussian_filter_plain_cross(fq[b], fk[b], v[b]) for b in range(B)])
+        torch.cuda.synchronize()
+        case = f"[{B},{Nq}]x[{B},{Nk}] d={d} C={C}"
+        check(torch.allclose(got, want, rtol=1e-4, atol=1e-5), f"bilateral differs from plain: {case}")
+        check(torch.equal(again, got), f"bilateral differs between launches: {case}")
+        small.append({"case": case, "max_abs_err": float((got - want).abs().max())})
+
+    # the reference's magnitudes: colours / 5 reach 51, |f|^2 about 7e3
+    S = 32
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 255, (S, S, 3)).astype(np.float64)
+    yy, xx = np.mgrid[0:S, 0:S] / 50.0
+    feats = np.stack([xx, yy] + [img[..., c] / 5.0 for c in range(3)], -1).reshape(1, -1, 5)
+    vals = rng.uniform(0, 1, (1, S * S, 2))
+    f64 = torch.from_numpy(feats).cuda()
+    d2 = ((f64[:, :, None, :] - f64[:, None, :, :]) ** 2).sum(-1)
+    gold = torch.exp(-0.5 * d2) @ torch.from_numpy(vals).cuda()
+    f32 = f64.float().contiguous()
+    got = gaussian_filter_cuda(f32, f32, torch.from_numpy(vals).float().cuda()).double()
+    fp64_rel = float((got - gold).abs().max() / gold.abs().max())
+    check(fp64_rel < 1e-3, f"bilateral off the float64 sum at reference magnitudes: {fp64_rel}")
+
+    # the path's shape: a pseudo-mask batch of 32 at 224², keys on the stride-2 grid
+    fq, fk, v = crf_path_inputs(32, 224, 2, seed=3)
+    got = gaussian_filter_cuda(fq, fk, v)
+    again = gaussian_filter_cuda(fq, fk, v)
+    torch.cuda.synchronize()
+    check(torch.equal(again, got), "bilateral differs between launches at the path's shape")
+    path_err = 0.0
+    for b in (0, 31):
+        want = gaussian_filter_plain_cross(fq[b], fk[b], v[b])
+        check(torch.allclose(got[b], want, rtol=1e-4, atol=0.0),
+              f"bilateral differs from plain at the path's shape, image {b}")
+        path_err = max(path_err, float((got[b] - want).abs().max()))
+    shape = [32, fq.shape[1], fk.shape[1], 5, 2]
+    bound_ms, bound_by = roofline(*bilateral_work(*shape))
+    norm_v = torch.ones_like(v[..., :1])
+    timing = {
+        "ms": cuda_ms(lambda: gaussian_filter_cuda(fq, fk, v), runs=10, warmup=2),
+        "ms_C1": cuda_ms(lambda: gaussian_filter_cuda(fq, fk, norm_v), runs=10, warmup=2),
+        "plain_ms": cuda_ms(lambda: gaussian_filter_plain_cross(fq, fk, v), runs=2, warmup=1),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms_C1": roofline(*bilateral_work(*shape[:4], 1))[0],
+        "gflop": bilateral_work(*shape)[1] / 1e9,
+        "max_abs_err": path_err, "shape": shape,
+    }
+    emit("crf", small_cases=small, small_rtol=1e-4, small_atol=1e-5,
+         fp64_max_rel_err=fp64_rel, path_max_abs_err=path_err,
+         path_output_max=float(got.abs().max()), kernels=["bilateral"], **timing)
+    return timing
+
+
+def full_width_classifier(seed: int):
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.models.classifier import CamClassifier
+    from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
+
+    model = CamClassifier(37, 50, 1.0)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.cuda().eval()
+
+
+def phase_cam_fusion():
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.cam.layercam import layercam
+    from weaklysuperviseddl_tpu_torch.data.preprocess import preprocess_batch
+    from weaklysuperviseddl_tpu_torch.data.synthetic import synthetic_pet_arrays
+    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import cam_fusion_cuda, cam_fusion_plain
+
+    model = full_width_classifier(0)
+    images, labels, _ = synthetic_pet_arrays(32, image_size=224, seed=8)
+    x, _ = preprocess_batch(torch.from_numpy((images * 255).astype(np.uint8)).cuda(), None,
+                            size=224)
+    cls = torch.from_numpy(labels).cuda()
+    # the classifier's own activations and gradients, as layercam takes them
+    xi = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+    logits, feats = model.features(xi)
+    acts = [feats["layer3"], feats["layer4"]]
+    grads = torch.autograd.grad(logits.gather(1, cls.long().view(-1, 1)).sum(), acts)
+    # as ops/cam_fusion.cam_fusion hands them to the kernel: cuDNN may return
+    # the activations in channels-last memory
+    acts = [a.detach().contiguous() for a in acts]
+    grads = [g.contiguous() for g in grads]
+
+    rng = np.random.default_rng(4)
+    ragged = [torch.from_numpy(rng.standard_normal((2, 130, 7, 9)).astype(np.float32)).cuda()
+              for _ in range(2)]
+    cases, by_shape, max_err = [], {}, 0.0
+    for name, (a, g) in (("layer3", (acts[0], grads[0])), ("layer4", (acts[1], grads[1])),
+                         ("ragged", ragged)):
+        got = cam_fusion_cuda(a, g)
+        again = cam_fusion_cuda(a, g)
+        want = cam_fusion_plain(a, g)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= 1e-5, f"cam_fusion differs from plain at {name} {tuple(a.shape)}: {err}")
+        check(torch.equal(again, got), f"cam_fusion differs between launches at {name}")
+        cases.append({"name": name, "shape": list(a.shape), "max_abs_err": err})
+        if name != "ragged":
+            max_err = max(max_err, err)
+            B, C, h, w = a.shape
+            # bytes: act and grad read once, the CAM written once; operations:
+            # a multiply, a max and an add per element
+            bound_ms, bound_by = roofline(4 * B * h * w * (2 * C + 1), 3 * B * C * h * w)
+            by_shape[name] = {
+                "shape": list(a.shape),
+                "ms": cuda_ms(lambda: cam_fusion_cuda(a, g), runs=50, warmup=5),
+                "plain_ms": cuda_ms(lambda: cam_fusion_plain(a, g), runs=50, warmup=5),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+
+    # ---- the main path: the kernel's count from 0, layercam(fusion="pallas"), read after ----
+    cam_fusion_cuda.launches = 0
+    cam_k, _ = layercam(model, x, cls, output_size=224, fusion="pallas")
+    torch.cuda.synchronize()
+    launches = cam_fusion_cuda.launches
+    cam_p, _ = layercam(model, x, cls, output_size=224, fusion="xla")
+    layercam_err = float((cam_k - cam_p).abs().max())
+    check(launches == 2, f"layercam(fusion='pallas') launched cam_fusion {launches} times, not 2")
+    check(layercam_err <= 1e-5, f"layercam pallas vs xla: {layercam_err}")
+    check(tuple(cam_k.shape) == (32, 224, 224) and bool(torch.isfinite(cam_k).all()),
+          "layercam CAMs are not finite [32,224,224]")
+    layer4 = by_shape["layer4"]
+    emit("cam_fusion", cases=cases, by_shape=by_shape, layercam_max_abs_err=layercam_err,
+         layercam_ms={f: cuda_ms(lambda: layercam(model, x, cls, output_size=224, fusion=f),
+                                 runs=3, warmup=1) for f in ("pallas", "xla")},
+         launches_main_path=launches, kernels=["cam_fusion"])
+    return {"launches": launches, "max_abs_err": max_err, "by_shape": by_shape,
+            "ms": layer4["ms"], "plain_ms": layer4["plain_ms"], "bound_ms": layer4["bound_ms"],
+            "bound_by": layer4["bound_by"], "shape": layer4["shape"]}
+
+
+def phase_weakly_crf():
+    import dataclasses
+    import math
+    from unittest import mock
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.config import (
+        AlternatingConfig,
+        ClassifierConfig,
+        ExperimentConfig,
+        MaskConfig,
+        SegConfig,
+    )
+    from weaklysuperviseddl_tpu_torch.data.dataset import load_split_data
+    from weaklysuperviseddl_tpu_torch.data.loader import batches
+    from weaklysuperviseddl_tpu_torch.masks import densecrf
+    from weaklysuperviseddl_tpu_torch.masks.pseudo import (
+        ResidentCams,
+        _derive_batch,
+        extract_cams,
+        masks_from_cams,
+    )
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import (
+        gaussian_filter_cuda,
+        gaussian_filter_plain_cross,
+    )
+    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import cam_fusion_cuda
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
+    from weaklysuperviseddl_tpu_torch.pipelines.weakly import (
+        crf_kwargs,
+        run_weakly_supervised_alternating,
+    )
+    from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch
+
+    cuts = {"classifier.epochs": 2, "seg.epochs": 1, "alternating.num_alternations": 1,
+            "alternating.epochs_per_round": 1, "alternating.refine_repeats": 2}
+    base = ExperimentConfig()
+    cfg = ExperimentConfig(
+        classifier=ClassifierConfig(epochs=2), mask=MaskConfig(use_crf=True),
+        seg=SegConfig(epochs=1, loss_fn="lovasz_softmax"),
+        alternating=AlternatingConfig(num_alternations=1, epochs_per_round=1, refine_repeats=2))
+    d, m = cfg.data, cfg.mask
+    check(dataclasses.replace(m, use_crf=False) == base.mask and cfg.data == base.data
+          and cfg.cam == base.cam, "weakly_crf config cut more than depth")
+    check(crf_kwargs(cfg) == CRF_REFERENCE, f"CRF kwargs {crf_kwargs(cfg)} are not the reference's")
+
+    sw = Stopwatch("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: every count from 0, the pipeline, counts read after ----
+    for kernel in (gaussian_filter_cuda, cam_fusion_cuda, label_components_cuda, refine_cuda):
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    result = run_weakly_supervised_alternating(cfg, stopwatch=sw, log=lambda *_: None,
+                                               device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {"bilateral": gaussian_filter_cuda.launches, "cam_fusion": cam_fusion_cuda.launches,
+                "cc_label": label_components_cuda.launches, "refine": refine_cuda.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n_train = len(result.mask_store)
+    want_k3 = math.ceil(n_train / d.batch_size) * (1 + m.crf_iters)
+    check(launches["bilateral"] == want_k3,
+          f"bilateral launched {launches['bilateral']} times on the path, expected {want_k3}")
+    check(launches["cc_label"] > 0 and launches["refine"] > 0,
+          f"the CRF path did not launch cc_label and refine: {launches}")
+    check(launches["cam_fusion"] == 0, "fusion='auto' launched the cam_fusion kernel")
+    metrics = result.metrics
+    scalars = {k: metrics[k] for k in ("iou", "acc", "final_loss", "alt_iou", "alt_acc")}
+    check(all(math.isfinite(v) for v in scalars.values()), f"non-finite metrics {scalars}")
+
+    # ---- 32 train images, CAMs from the run's classifier ----
+    train_ds, _ = load_split_data(d.root, train_ratio=d.train_ratio, seed=d.seed,
+                                  synthetic_size=d.synthetic_size, image_size=d.image_size,
+                                  num_classes=d.num_classes)
+    resident = extract_cams(batches(train_ds, d.batch_size, pad_to_full=True), result.classifier,
+                            image_size=d.image_size, max_images=32)
+    kw = crf_kwargs(cfg)
+
+    def crf_masks(res, **over):
+        store = masks_from_cams(res, cam_thresh=m.cam_thresh, use_crf=True,
+                                crf_kwargs={**kw, **over})
+        return store.as_arrays()[1]
+
+    kernel_masks = crf_masks(resident)
+    with mock.patch.object(densecrf, "gaussian_filter_cross", gaussian_filter_plain_cross):
+        plain_masks = crf_masks(resident)
+    plain_agree = float((kernel_masks == plain_masks).mean())
+    check(plain_agree >= 0.999, f"CRF masks, kernel vs plain filter on the card: {plain_agree}")
+    cpu2 = ResidentCams(resident.images_raw[:2].cpu(), resident.cams[:2].cpu(),
+                        resident.store_images[:2].cpu(), resident.image_size, 2)
+    t_cpu = time.perf_counter()
+    cpu_masks = crf_masks(cpu2)
+    cpu_s = time.perf_counter() - t_cpu
+    cpu_agree = float((kernel_masks[:2] == cpu_masks).mean())
+    check(cpu_agree >= 0.999, f"CRF masks, card vs CPU on 2 images: {cpu_agree}")
+    exact_masks = crf_masks(resident, bilat_backend="attention")
+    per_image = (kernel_masks == exact_masks).reshape(32, -1).mean(axis=1)
+    check(per_image.mean() >= 0.99,
+          f"subsampled vs attention CRF: mean agreement {per_image.mean()} < 0.99")
+    fg = float(kernel_masks.mean())
+    check(0.01 < fg < 0.99, f"CRF masks are empty or full: foreground {fg}")
+
+    # one pseudo-mask batch of 32 through the CRF, by stage
+    x = resident.images_raw[:32]
+    cam = resident.cams[:32]
+    batch_ms = {
+        "crf_and_keep_largest": cuda_ms(lambda: _derive_batch(
+            x, cam, m.cam_thresh, True, True, d.image_size, kw), runs=3, warmup=1),
+        "attention_crf_and_keep_largest": cuda_ms(lambda: _derive_batch(
+            x, cam, m.cam_thresh, True, True, d.image_size, {**kw, "bilat_backend": "attention"}),
+            runs=2, warmup=1),
+        "threshold_and_keep_largest": cuda_ms(lambda: _derive_batch(
+            x, cam, m.cam_thresh, True, False, d.image_size, kw), runs=5, warmup=1),
+    }
+    phases = {name: {"seconds": sw.times[name], "calls": sw.counts[name],
+                     "img_per_s": sw.rate(name)} for name in sw.times}
+    emit("weakly_crf", entry="run_weakly_supervised_alternating",
+         crf=kw, seg_loss=cfg.seg.loss_fn, cuts=cuts, train_images=n_train, wall_s=wall,
+         phases=phases, metrics=metrics, peak_mem_gb=peak_gb, launches_main_path=launches,
+         expected_bilateral_launches=want_k3,
+         masks_kernel_vs_plain_agreement=plain_agree, masks_card_vs_cpu_agreement=cpu_agree,
+         cpu_crf_2_images_s=cpu_s,
+         subsampled_vs_attention={"mean": float(per_image.mean()),
+                                  "min": float(per_image.min())},
+         crf_fg_frac=fg, batch32_ms=batch_ms)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -658,9 +1003,17 @@ def main() -> int:
     launches, served_masks = phase_serve()
     refine_timing = phase_refine()
     weakly_launches = phase_weakly()
+    crf_timing = phase_crf()
+    fusion = phase_cam_fusion()
+    crf_launches = phase_weakly_crf()
 
     from weaklysuperviseddl_tpu_torch.masks.components import label_components
     from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+
+    def by_path(name, serve=0, weakly=0, cam_fusion=0):
+        paths = {"serve": serve, "weakly": weakly, "cam_fusion": cam_fusion,
+                 "weakly_crf": crf_launches[name]}
+        return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     # cc: on the masks the serving path gave it, the served argmax [64,256,256]
     shape = tuple(served_masks.shape)
@@ -669,8 +1022,7 @@ def main() -> int:
         "route": "cuda",
         "source": "weaklysuperviseddl_tpu_torch/csrc/cc.cu",
         "replaces": "weaklysuperviseddl_tpu/ops/pallas_cc.py:29",
-        "launches": launches + weakly_launches["cc_label"],
-        "launches_by_path": {"serve": launches, "weakly": weakly_launches["cc_label"]},
+        **by_path("cc_label", serve=launches, weakly=weakly_launches["cc_label"]),
         "max_abs_err": max_err,
         "ms": cuda_ms(lambda: label_components_cuda(served_masks)),
         "plain_ms": cuda_ms(lambda: label_components(served_masks), runs=20, warmup=1),
@@ -683,8 +1035,7 @@ def main() -> int:
         "route": "cuda",
         "source": "weaklysuperviseddl_tpu_torch/csrc/refine.cu",
         "replaces": "weaklysuperviseddl_tpu/ops/pallas_refine.py:45",
-        "launches": weakly_launches["refine"],
-        "launches_by_path": {"serve": 0, "weakly": weakly_launches["refine"]},
+        **by_path("refine", weakly=weakly_launches["refine"]),
         "max_abs_err": refine_timing["max_abs_err"],  # of the loss; masks equal or >= 0.9999
         "ms": refine_timing["ms"],
         "plain_ms": refine_timing["plain_ms"],
@@ -692,6 +1043,32 @@ def main() -> int:
         "bound_by": refine_timing["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the refinement
         "shape": refine_timing["shape"],
+    }, {
+        "name": "bilateral",
+        "route": "cuda",
+        "source": "weaklysuperviseddl_tpu_torch/csrc/bilateral.cu",
+        "replaces": "weaklysuperviseddl_tpu/ops/pallas_bilateral.py:147",
+        **by_path("bilateral"),
+        "max_abs_err": crf_timing["max_abs_err"],  # at the path's shape, against plain
+        "ms": crf_timing["ms"],
+        "plain_ms": crf_timing["plain_ms"],
+        "bound_ms": crf_timing["bound_ms"],
+        "bound_by": crf_timing["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the Gaussian-kernel filter
+        "shape": crf_timing["shape"],  # [B, Nq, Nk, d, C]
+    }, {
+        "name": "cam_fusion",
+        "route": "cuda",
+        "source": "weaklysuperviseddl_tpu_torch/csrc/cam_fusion.cu",
+        "replaces": "weaklysuperviseddl_tpu/ops/pallas_cam.py:28",
+        **by_path("cam_fusion", cam_fusion=fusion["launches"]),
+        "max_abs_err": fusion["max_abs_err"],
+        "ms": fusion["ms"],
+        "plain_ms": fusion["plain_ms"],
+        "bound_ms": fusion["bound_ms"],
+        "bound_by": fusion["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the fusion
+        "shape": fusion["shape"],  # layer4; layer3 in the cam_fusion line
     }]}
     print(smi, flush=True)
     print(json.dumps(kernel_line), flush=True)

@@ -1,5 +1,6 @@
-"""Port parity: LayerCAM (both alpha modes), CAM → mask, and pseudo-mask
-generation, against the JAX package with the same classifier weights."""
+"""Port parity: LayerCAM (both alpha modes), the CAM fusion of one layer
+(the CPU side of kernel K5), CAM → mask, and pseudo-mask generation, against
+the JAX package with the same classifier weights."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,10 +13,12 @@ from weaklysuperviseddl_tpu.data.dataset import download_data as jax_download
 from weaklysuperviseddl_tpu.data.loader import batches as jax_batches
 from weaklysuperviseddl_tpu.masks.pseudo import cam_to_mask as jax_cam_to_mask
 from weaklysuperviseddl_tpu.masks.pseudo import generate_pseudo_masks as jax_generate
+from weaklysuperviseddl_tpu.ops.pallas_cam import fused_cam_fusion
 from weaklysuperviseddl_tpu_torch.cam.layercam import layercam
 from weaklysuperviseddl_tpu_torch.data.dataset import download_data
 from weaklysuperviseddl_tpu_torch.data.loader import batches
 from weaklysuperviseddl_tpu_torch.masks.pseudo import cam_to_mask, generate_pseudo_masks
+from weaklysuperviseddl_tpu_torch.ops.cam_fusion import cam_fusion, cam_fusion_plain
 
 
 @pytest.mark.parametrize("alpha,mode", [(1.0, "per_layer"), (0.5, "per_layer"), (0.5, "final")])
@@ -40,8 +43,28 @@ def test_layercam_argmax_class_and_fusion_option():
     got_none, logits = layercam(port, x, None, output_size=64, fusion="auto")
     got_arg, _ = layercam(port, x, logits.argmax(dim=1), output_size=64)
     torch.testing.assert_close(got_none, got_arg, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="K5"):
-        layercam(port, x, None, fusion="pallas")
+    # on a CPU tensor fusion="pallas" runs the kernel's plain version
+    got_pallas, _ = layercam(port, x, None, output_size=64, fusion="pallas")
+    got_xla, _ = layercam(port, x, None, output_size=64, fusion="xla")
+    torch.testing.assert_close(got_pallas, got_xla, rtol=0, atol=0)
+    torch.testing.assert_close(got_pallas, got_none, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="fusion"):
+        layercam(port, x, None, fusion="triton")
+
+
+@pytest.mark.parametrize("shape", [(3, 14, 14, 160), (2, 7, 9, 130)])
+def test_cam_fusion_matches_pallas_kernel_in_interpret_mode(shape):
+    """The plain fusion against the TPU kernel run in interpret mode, atol 1e-6
+    (tests/test_pallas_cam.py's tolerance); JAX takes NHWC, the port NCHW."""
+    rng = np.random.default_rng(sum(shape))
+    act = rng.standard_normal(shape).astype(np.float32)
+    grad = rng.standard_normal(shape).astype(np.float32)
+    want = np.asarray(fused_cam_fusion(jnp.asarray(act), jnp.asarray(grad), interpret=True))
+    a, g = (torch.from_numpy(x.transpose(0, 3, 1, 2).copy()) for x in (act, grad))
+    got = cam_fusion(a, g)
+    assert got.shape == shape[:3]
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+    torch.testing.assert_close(got, cam_fusion_plain(a, g), rtol=0, atol=0)
 
 
 def test_cam_to_mask_equal_on_the_same_cams():

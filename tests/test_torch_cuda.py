@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA connected-components kernel against its plain
-version, and the serving path on CUDA against the CPU. Needs an NVIDIA GPU and
-nvcc; skipped elsewhere. Imports no JAX, so it runs where JAX is absent:
+"""The port on the card: the CUDA kernels (connected components, refinement,
+the CRF's bilateral filter, the LayerCAM fusion) against their plain versions,
+and the serving path on CUDA against the CPU. Needs an NVIDIA GPU and nvcc;
+skipped elsewhere. Imports no JAX, so it runs where JAX is absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -137,3 +138,98 @@ def test_predictor_on_card_matches_cpu(cuda):
     gpu = Predictor(model, size=64, max_batch=4, clean=True, packed=True, device=cuda)(imgs)
     # float32 on both, convolutions summed in another order: near-tie pixels may flip
     assert (gpu == cpu).mean() >= 0.995
+
+
+def _filter_case(B, Nq, Nk, d, C, scale, cuda, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(a).to(cuda) for a in (
+        rng.uniform(0, scale, (B, Nq, d)).astype(np.float32),
+        rng.uniform(0, scale, (B, Nk, d)).astype(np.float32),
+        rng.uniform(0, 1, (B, Nk, C)).astype(np.float32)))
+
+
+@pytest.mark.parametrize("B,Nq,Nk,d,C", [(1, 531, 187, 5, 1), (1, 531, 187, 5, 2),
+                                         (1, 531, 187, 5, 3), (3, 300, 129, 5, 2),
+                                         (1, 200, 150, 20, 128), (2, 77, 65, 3, 9)])
+def test_bilateral_kernel_equals_plain(cuda, B, Nq, Nk, d, C):
+    """rtol 1e-4, atol 1e-5 (the tolerance the JAX package holds its filter to
+    against the literal sum); two launches give the same bits."""
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import (
+        gaussian_filter_cuda,
+        gaussian_filter_plain_cross,
+    )
+
+    fq, fk, v = _filter_case(B, Nq, Nk, d, C, 20.0 if d == 5 else 4.0, cuda)
+    got = gaussian_filter_cuda(fq, fk, v)
+    again = gaussian_filter_cuda(fq, fk, v)
+    want = gaussian_filter_plain_cross(fq, fk, v)
+    torch.cuda.synchronize()
+    assert got.shape == (B, Nq, C)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(again, got)
+
+
+def test_bilateral_wrapper_routes_and_checks(cuda):
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cross, gaussian_filter_cuda
+
+    fq, fk, v = _filter_case(1, 40, 30, 5, 2, 20.0, cuda)
+    before = gaussian_filter_cuda.launches
+    out = gaussian_filter_cross(fq[0], fk[0], v[0])  # 2-D: one image
+    assert out.shape == (40, 2) and gaussian_filter_cuda.launches == before + 1
+    with pytest.raises(TypeError):
+        gaussian_filter_cuda(fq.double(), fk, v)
+    with pytest.raises(ValueError):
+        gaussian_filter_cuda(fq[:, ::2], fk, v)
+    with pytest.raises(ValueError):
+        gaussian_filter_cuda(fq, fk[:, :, :4].contiguous(), v)
+
+
+def test_crf_masks_on_card_match_cpu(cuda):
+    from weaklysuperviseddl_tpu_torch.masks.densecrf import apply_dense_crf
+
+    rng = np.random.default_rng(1)
+    images = rng.integers(0, 256, (2, 40, 36, 3)).astype(np.uint8)
+    cams = rng.uniform(0, 1, (2, 40, 36)).astype(np.float32)
+    for backend in ("attention", "subsampled"):
+        cpu = apply_dense_crf(torch.from_numpy(images), torch.from_numpy(cams),
+                              bilat_backend=backend)
+        gpu = apply_dense_crf(torch.from_numpy(images).to(cuda),
+                              torch.from_numpy(cams).to(cuda), bilat_backend=backend)
+        assert (gpu.cpu() == cpu).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("shape", [(3, 160, 14, 14), (2, 130, 7, 9), (4, 64, 56, 56),
+                                   (1, 3, 200, 200)])
+def test_cam_fusion_kernel_equals_plain(cuda, shape):
+    """atol 1e-5: channel sums in another order, then a min-max to [0,1]."""
+    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import cam_fusion_cuda, cam_fusion_plain
+
+    rng = np.random.default_rng(2)
+    act, grad = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+                 for _ in range(2))
+    got = cam_fusion_cuda(act, grad)
+    again = cam_fusion_cuda(act, grad)
+    want = cam_fusion_plain(act, grad)
+    torch.cuda.synchronize()
+    assert got.shape == (shape[0], *shape[2:])
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(again, got)
+
+
+def test_layercam_pallas_fusion_launches_the_kernel(cuda):
+    from weaklysuperviseddl_tpu_torch.cam.layercam import layercam
+    from weaklysuperviseddl_tpu_torch.models.classifier import CamClassifier
+    from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
+    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import cam_fusion_cuda
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = CamClassifier(7, 18, 0.25)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda)
+    x = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (2, 64, 64, 3))
+                         .astype(np.float32)).to(cuda)
+    before = cam_fusion_cuda.launches
+    got, _ = layercam(model, x, None, output_size=64, fusion="pallas")
+    assert cam_fusion_cuda.launches == before + 2
+    want, _ = layercam(model, x, None, output_size=64, fusion="xla")
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

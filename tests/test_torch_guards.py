@@ -88,3 +88,17 @@ def test_kernel_wrapper_rejects_cpu_tensors():
         refine_cuda(torch.zeros((1, 4, 4, 2)), torch.zeros((1, 4, 4, 3)),
                     torch.zeros((1, 4, 4), dtype=torch.int32))
     assert refine_cuda.launches == before
+
+
+def test_crf_and_cam_fusion_kernel_wrappers_reject_cpu_tensors():
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cuda
+    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import cam_fusion_cuda
+
+    before = gaussian_filter_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        gaussian_filter_cuda(torch.zeros((1, 6, 5)), torch.zeros((1, 4, 5)), torch.zeros((1, 4, 2)))
+    assert gaussian_filter_cuda.launches == before
+    before = cam_fusion_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        cam_fusion_cuda(torch.zeros((1, 8, 3, 3)), torch.zeros((1, 8, 3, 3)))
+    assert cam_fusion_cuda.launches == before

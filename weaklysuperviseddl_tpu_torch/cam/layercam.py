@@ -5,8 +5,10 @@ The gradients are ``torch.autograd.grad`` of the selected-class logits with
 respect to the target stages' outputs: the counterpart of the JAX package's
 vjp over zero perturbations added to those outputs.
 
-Per layer: ``relu(grad ⊙ act).sum(channels)`` → relu → per-image min-max,
-then either
+Per layer: ``relu(grad ⊙ act).sum(channels)`` → relu → per-image min-max
+(``fusion="pallas"``: through ``ops/cam_fusion.py``, the CUDA kernel on a CUDA
+tensor; ``"auto"`` and ``"xla"``: the plain expression, as JAX's ``"auto"``
+resolves to XLA), then either
   * alpha_mode='per_layer': ``**alpha`` → min-max again, or
   * alpha_mode='final': nothing per layer; after the mean over layers,
     ``clamp(0) ** alpha``;
@@ -18,13 +20,9 @@ from __future__ import annotations
 
 import torch
 
+from weaklysuperviseddl_tpu_torch.ops.cam_fusion import cam_fusion, cam_fusion_plain
+from weaklysuperviseddl_tpu_torch.ops.cam_fusion import minmax as _minmax
 from weaklysuperviseddl_tpu_torch.ops.resize import resize_bilinear
-
-
-def _minmax(cam: torch.Tensor) -> torch.Tensor:
-    """Per-image min-max over the trailing two dims: c -= min; c /= (max + 1e-8)."""
-    cam = cam - cam.amin(dim=(-2, -1), keepdim=True)
-    return cam / (cam.amax(dim=(-2, -1), keepdim=True) + 1e-8)
 
 
 def layercam(model, images: torch.Tensor, class_idx: torch.Tensor | None,
@@ -33,10 +31,7 @@ def layercam(model, images: torch.Tensor, class_idx: torch.Tensor | None,
     """``model``: a ``CamClassifier``. images [B,H,W,3]; class_idx [B] or None
     (→ argmax of the logits). Returns (cam [B,S,S] float32 in [0,1], logits
     [B,K]), both without gradient."""
-    if fusion == "pallas":
-        raise NotImplementedError("fusion='pallas' needs the CAM-fusion kernel K5, "
-                                  "which is not ported yet")
-    if fusion not in ("auto", "xla"):
+    if fusion not in ("auto", "xla", "pallas"):
         raise ValueError(f"unknown fusion {fusion!r}")
     if alpha_mode not in ("per_layer", "final"):
         raise ValueError(f"unknown alpha_mode {alpha_mode!r}")
@@ -54,8 +49,8 @@ def layercam(model, images: torch.Tensor, class_idx: torch.Tensor | None,
     with torch.no_grad():
         layer_cams = []
         for act, grad in zip(acts, grads):
-            cam = torch.relu(grad * act).sum(dim=1)          # [B,h,w]
-            cam = _minmax(torch.relu(cam))
+            fuse = cam_fusion if fusion == "pallas" else cam_fusion_plain
+            cam = fuse(act, grad)                            # [B,h,w]
             if alpha_mode == "per_layer":
                 cam = _minmax(cam ** alpha)
             layer_cams.append(resize_bilinear(cam, (output_size, output_size), axes=(1, 2)))

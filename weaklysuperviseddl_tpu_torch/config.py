@@ -59,12 +59,15 @@ class CamConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MaskConfig:
-    """Pseudo-mask generation (ref PsuedoMasks.py:23-79). The CRF fields are
-    kept for parity of the config; ``use_crf=True`` is not ported yet."""
+    """Pseudo-mask generation (ref PsuedoMasks.py:23-79)."""
 
     cam_thresh: float = 0.3
     keep_largest: bool = True
-    use_crf: bool = False
+    use_crf: bool = False            # AlternatingDirectionCutLoss.py:558 path uses CRF, PsuedoMasks.py does not
+    # bilateral backend (masks/densecrf.py): "subsampled" = full-resolution
+    # queries x the stride-`crf_key_stride` key subgrid through the exact
+    # filter; "attention" = the exact O(N^2) filter. The JAX package's "grid",
+    # "lattice" and "rff" are not ported yet.
     crf_backend: str = "subsampled"
     crf_key_stride: int = 2
     crf_iters: int = 5
@@ -85,7 +88,7 @@ class SegConfig:
     lr: float = 1e-4
     epochs: int = 5
     batch_size: int = 4
-    loss_fn: str = "cross_entropy"   # 'cross_entropy' | 'lovasz_softmax' (not ported yet)
+    loss_fn: str = "cross_entropy"   # 'cross_entropy' | 'lovasz_softmax'
     dtype: str = "float32"
     backbone_depth: int = 50
     width_multiplier: float = 1.0

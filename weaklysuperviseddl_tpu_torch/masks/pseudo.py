@@ -3,13 +3,18 @@ weaklysuperviseddl_tpu/masks/pseudo.py; ref TraditionalModel/PsuedoMasks.py:23-7
 
 Two stages, as in the JAX package: ``extract_cams`` drains the loader once,
 uploads once and runs LayerCAM batch by batch on the device;
-``masks_from_cams`` thresholds and keeps the largest component (on a CUDA
-tensor through the connected-components kernel, ``ops/cc.py``) batch by
-batch, and fills a ``MaskStore``. Padded batches repeat the last index, as
-the JAX index tables do, and their extra rows are dropped.
+``masks_from_cams`` derives the masks batch by batch and fills a
+``MaskStore``: threshold → largest component (on a CUDA tensor through the
+connected-components kernel, ``ops/cc.py``), or with ``use_crf=True`` the
+reference's script-path variant (AlternatingDirectionCutLoss.py:530-558):
+zero the CAM below the threshold, refine it with the dense CRF
+(``masks/densecrf.py``, its bilateral filter the CUDA kernel of
+``ops/bilateral.py`` on the card), then keep the largest component. Padded
+batches repeat the last index, as the JAX index tables do, and their extra
+rows are dropped.
 
-Not ported yet: the dense CRF (``use_crf=True``, with kernel K3) and the
-host-spilling extraction (``spill_to_host=True``); both raise.
+Not ported yet: the host-spilling extraction (``spill_to_host=True``), which
+raises.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from weaklysuperviseddl_tpu_torch.cam.layercam import layercam
 from weaklysuperviseddl_tpu_torch.data.mask_store import MaskStore
 from weaklysuperviseddl_tpu_torch.data.preprocess import preprocess_batch
 from weaklysuperviseddl_tpu_torch.masks.components import keep_largest_batch
+from weaklysuperviseddl_tpu_torch.masks.densecrf import apply_dense_crf
 
 
 def cam_to_mask(cam: torch.Tensor, cam_thresh: float, keep_largest_masks: bool = True):
@@ -104,16 +110,38 @@ def extract_cams(loader, model, alpha: float = 1.0, target_layers=("layer3", "la
                         image_size, batch_size)
 
 
+def _derive_batch(raw: torch.Tensor, cam: torch.Tensor, cam_thresh: float,
+                  keep_largest: bool, use_crf: bool, image_size: int,
+                  crf_kwargs: dict) -> torch.Tensor:
+    """One batch's masks, uint8 [B,S,S]: ``cam_to_mask``, or with the CRF the
+    raw images preprocessed at ``image_size`` (no ImageNet normalisation, as
+    in the JAX package), the CAM zeroed below the threshold, the dense CRF on
+    [0,255] colours, then optionally the largest component."""
+    if not use_crf:
+        return cam_to_mask(cam, cam_thresh, keep_largest)
+    x, _ = preprocess_batch(raw, None, size=image_size)
+    cam_t = torch.where(cam < cam_thresh, torch.zeros_like(cam), cam)
+    m = apply_dense_crf(x * 255.0, cam_t, **crf_kwargs)
+    if keep_largest:
+        m = keep_largest_batch(m)
+    return m.to(torch.uint8)
+
+
 def masks_from_cams(resident: ResidentCams, cam_thresh: float = 0.3,
-                    keep_largest_masks: bool = True, store_dir: str | None = None) -> MaskStore:
-    """Stage 2: threshold → largest component, batch by batch; results land
+                    keep_largest_masks: bool = True, use_crf: bool = False,
+                    crf_kwargs: dict | None = None, store_dir: str | None = None) -> MaskStore:
+    """Stage 2: threshold → (optional dense CRF, ``crf_kwargs`` passed to
+    ``densecrf_inference``) → largest component, batch by batch; results land
     in a MaskStore keyed by zero-padded running id."""
     store = MaskStore(directory=store_dir)
     n = len(resident)
     if n == 0:
         return store
     idx_table = torch.from_numpy(_index_table(n, resident.batch_size)).to(resident.cams.device)
-    masks = torch.cat([cam_to_mask(resident.cams[idx], cam_thresh, keep_largest_masks)
+    crf_kwargs = dict(crf_kwargs or {})
+    masks = torch.cat([_derive_batch(resident.images_raw[idx] if use_crf else None,
+                                     resident.cams[idx], cam_thresh, keep_largest_masks,
+                                     use_crf, resident.image_size, crf_kwargs)
                        for idx in idx_table])[:n]
     masks_np = masks.cpu().numpy()
     images_np = resident.store_images.cpu().numpy()
@@ -127,17 +155,16 @@ def generate_pseudo_masks(loader, model, cam_thresh: float = 0.3, alpha: float =
                           target_layers=("layer3", "layer4"), alpha_mode: str = "per_layer",
                           image_size: int = 224, max_images: int = 500,
                           store_dir: str | None = None, use_crf: bool = False,
+                          crf_kwargs: dict | None = None,
                           spill_to_host: bool = False) -> MaskStore:
     """``extract_cams`` then ``masks_from_cams``, with the reference contract
     (PsuedoMasks.py:23-79): ground-truth labels drive the CAM class, output
     capped at ``max_images``, masks and min-max-unnormalised images in a
     (optionally PNG-backed) MaskStore keyed by zero-padded running id."""
     del run_id  # kept for the reference's signature
-    if use_crf:
-        raise NotImplementedError("use_crf=True needs the dense CRF (M9) with its "
-                                  "kernel K3, which are not ported yet")
     resident = extract_cams(loader, model, alpha=alpha, target_layers=target_layers,
                             alpha_mode=alpha_mode, image_size=image_size,
                             max_images=max_images, spill_to_host=spill_to_host)
     return masks_from_cams(resident, cam_thresh=cam_thresh,
-                           keep_largest_masks=keep_largest_masks, store_dir=store_dir)
+                           keep_largest_masks=keep_largest_masks, use_crf=use_crf,
+                           crf_kwargs=crf_kwargs, store_dir=store_dir)

@@ -4,9 +4,12 @@ weaklysuperviseddl_tpu/pipelines/weakly.py; ref AlternatingDirectionCutLoss.py:4
 
 Every entry point runs on the card unless ``device="cpu"`` is given, and
 raises without a card. The port runs on one device: a ``MeshConfig`` other
-than data ∈ {-1, 1}, model == 1 raises. Not ported yet: ``resume`` and
-``checkpoint_dir`` (``utils/checkpoint.py``), the dense CRF, the Lovász loss,
-``seg.bn_frozen`` and compute types other than float32.
+than data ∈ {-1, 1}, model == 1 raises. ``mask.use_crf`` runs the dense CRF
+with the "attention" or "subsampled" backend (the bilateral filter is a CUDA
+kernel on the card); ``seg.loss_fn`` is "cross_entropy" or "lovasz_softmax".
+Not ported yet: ``resume`` and ``checkpoint_dir`` (``utils/checkpoint.py``),
+the CRF's other backends, ``seg.bn_frozen`` and compute types other than
+float32.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from weaklysuperviseddl_tpu_torch.config import ExperimentConfig
 from weaklysuperviseddl_tpu_torch.data.dataset import download_data, load_split_data
 from weaklysuperviseddl_tpu_torch.data.loader import batches, stack_dataset
 from weaklysuperviseddl_tpu_torch.device import resolve_device
+from weaklysuperviseddl_tpu_torch.masks.densecrf import EXACT_BACKENDS
 from weaklysuperviseddl_tpu_torch.masks.pseudo import generate_pseudo_masks
 from weaklysuperviseddl_tpu_torch.models.classifier import CamClassifier
 from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
@@ -27,6 +31,7 @@ from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
 from weaklysuperviseddl_tpu_torch.train.alternating import run_alternating_training
 from weaklysuperviseddl_tpu_torch.train.classifier import train_fc_only
 from weaklysuperviseddl_tpu_torch.train.segmentation import (
+    LOSSES,
     create_seg_state,
     evaluate_segmentation_dataset,
     train_segmentation_model,
@@ -52,12 +57,22 @@ def check_supported(cfg: ExperimentConfig):
         raise NotImplementedError("the port computes in float32 only so far")
     if cfg.seg.bn_frozen:
         raise NotImplementedError("seg.bn_frozen is not ported yet")
-    if cfg.seg.loss_fn != "cross_entropy":
-        raise NotImplementedError(f"seg.loss_fn={cfg.seg.loss_fn!r} is not ported yet "
-                                  "(M7's Lovász port)")
-    if cfg.mask.use_crf:
-        raise NotImplementedError("mask.use_crf needs the dense CRF (M9) with its kernel "
-                                  "K3, which are not ported yet")
+    if cfg.seg.loss_fn not in LOSSES:
+        raise ValueError(f"unknown seg.loss_fn {cfg.seg.loss_fn!r}; expected one of {LOSSES}")
+    if cfg.mask.use_crf and cfg.mask.crf_backend not in EXACT_BACKENDS:
+        raise NotImplementedError(f"mask.crf_backend={cfg.mask.crf_backend!r} is not ported "
+                                  f"yet; the port runs {EXACT_BACKENDS}")
+
+
+def crf_kwargs(cfg: ExperimentConfig) -> dict | None:
+    """The dense CRF's arguments from ``cfg.mask`` (None when the CRF is off)."""
+    m = cfg.mask
+    if not m.use_crf:
+        return None
+    return dict(gauss_sxy=m.crf_gaussian_sxy, gauss_compat=m.crf_gaussian_compat,
+                bilat_sxy=m.crf_bilateral_sxy, bilat_srgb=m.crf_bilateral_srgb,
+                bilat_compat=m.crf_bilateral_compat, n_iters=m.crf_iters,
+                bilat_backend=m.crf_backend, key_stride=m.crf_key_stride)
 
 
 def build_classifier(cfg: ExperimentConfig, device) -> CamClassifier:
@@ -104,7 +119,8 @@ def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch
             cam_thresh=cfg.mask.cam_thresh, alpha=cfg.cam.alpha,
             keep_largest_masks=cfg.mask.keep_largest, target_layers=cfg.cam.target_layers,
             alpha_mode=cfg.cam.alpha_mode, image_size=d.image_size,
-            max_images=cfg.mask.max_images, store_dir=cfg.mask.store_dir)
+            max_images=cfg.mask.max_images, store_dir=cfg.mask.store_dir,
+            use_crf=cfg.mask.use_crf, crf_kwargs=crf_kwargs(cfg))
     log(f"Pseudo masks generated: {len(store)}")
 
     # --- stage 4: DeepLabV3 on the pseudo-masks -------------------------------

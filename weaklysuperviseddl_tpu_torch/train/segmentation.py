@@ -2,7 +2,8 @@
 ref TraditionalModel/SegmentationModel.py:59-159).
 
 Adam (lr 1e-4) over all parameters behind the non-finite-gradient guard, CE
-on pseudo-masks clamped to {0,1}, BatchNorm in training mode (batch
+(or, with ``loss_fn="lovasz_softmax"``, the per-image Lovász-Softmax over the
+present classes of the softmax) on pseudo-masks clamped to {0,1}, BatchNorm in training mode (batch
 statistics, flax's running-statistics update: ``models/resnet.BatchNorm2d``).
 Batches are fixed-shape: the ragged tail repeats its last index and those
 rows carry weight 0 in the loss, as in the JAX package (they still enter the
@@ -14,8 +15,6 @@ Evaluation (``evaluate_segmentation_dataset``) is the reference's
 ``evaluate_model``: predict at ``seg_size``, nearest-resize the trimaps to
 ``eval_size`` and the predictions (legacy nearest) to the trimaps' size,
 binarise the truth as trimap == 1, mean of per-image IoU and accuracy.
-
-Not ported yet: the Lovász-Softmax loss (``loss_fn="lovasz_softmax"``).
 """
 
 from __future__ import annotations
@@ -28,10 +27,14 @@ import torch
 from weaklysuperviseddl_tpu_torch.data.preprocess import normalize_images as _normalize_images
 from weaklysuperviseddl_tpu_torch.data.preprocess import preprocess_batch
 from weaklysuperviseddl_tpu_torch.losses.basic import per_example_nll
+from weaklysuperviseddl_tpu_torch.losses.lovasz import lovasz_softmax_per_image
 from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
 from weaklysuperviseddl_tpu_torch.ops.resize import resize_nearest
 from weaklysuperviseddl_tpu_torch.train.guard import GuardedAdam
 from weaklysuperviseddl_tpu_torch.utils.metrics import compute_iou_and_acc
+
+
+LOSSES = ("cross_entropy", "lovasz_softmax")
 
 
 @dataclass
@@ -58,13 +61,18 @@ def seg_train_step(state: SegTrainState, images: torch.Tensor, masks: torch.Tens
     """One step on normalised [B,H,W,3] images and [B,H,W] integer masks;
     ``valid`` [B] masks padded rows out of the loss. Returns the loss (0-dim,
     on the device)."""
-    if loss_fn != "cross_entropy":
-        raise NotImplementedError(f"loss_fn={loss_fn!r} is not ported yet (M7's Lovász port)")
+    if loss_fn not in LOSSES:
+        raise ValueError(f"unknown loss_fn {loss_fn!r}; expected one of {LOSSES}")
     model = state.model
     model.train()
     logits = model(images.permute(0, 3, 1, 2))                      # [B,C,H,W]
     masks_c = masks.clamp(0, 1)                                     # ref :100 clamp(max=1)
-    per = per_example_nll(logits, masks_c, dim=1).mean(dim=(1, 2))  # [B]
+    if loss_fn == "lovasz_softmax":
+        # per image, so that padded rows can be weighted out
+        probas = torch.softmax(logits, dim=1).permute(0, 2, 3, 1)
+        per = lovasz_softmax_per_image(probas, masks_c, classes="present")
+    else:
+        per = per_example_nll(logits, masks_c, dim=1).mean(dim=(1, 2))  # [B]
     w = valid.float()
     loss = (per * w).sum() / w.sum().clamp(min=1.0)
     state.optimizer.zero_grad()
