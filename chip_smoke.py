@@ -676,10 +676,11 @@ def seg_step_breakdown(state, images, masks) -> dict:
 def bilateral_work(B: int, Nq: int, Nk: int, d: int, C: int):
     """(bytes, fp32 operations) of one exact filter call, from its shapes.
     Bytes: the query and key features and the values read once, the output
-    written once. Operations per key pair, as the kernel computes them: d
-    subtractions, d FMAs (2 each), the multiply by -1/2, the exp (1), and C
-    FMAs (2 each)."""
-    ops = B * Nq * Nk * (3 * d + 2 + 2 * C)
+    written once. Operations per key pair that the function needs: d
+    subtractions, d multiplies and d - 1 adds for the squared distance, the
+    exp (1), and C multiply-adds (2 each). The -1/2 is not counted per pair:
+    it can fold into the O(N) features."""
+    ops = B * Nq * Nk * (3 * d + 2 * C)
     nbytes = 4 * B * (Nq * d + Nk * d + Nk * C + Nq * C)
     return nbytes, ops
 

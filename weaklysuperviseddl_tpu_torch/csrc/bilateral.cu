@@ -28,9 +28,11 @@
 // MAX_CC channels held in registers; when C > MAX_CC each pass recomputes
 // the exponents.
 //
-// Bound. Operations: per key pair d subtractions, d FMAs, one multiply, one
-// exp and C FMAs; at the CRF's path shape ([32,50176] queries x [32,12544]
-// keys, d 5, C 2) that is 2.0e10 pairs, far above its 56 MB of bytes. What
+// Bound. The function needs per key pair d subtractions, d multiplies, d - 1
+// adds, one exp and C multiply-adds: 3d + 2C operations (the kernel also
+// multiplies by -1/2 per pair, which could fold into the features). At the
+// CRF's path shape ([32,50176] queries x [32,12544] keys, d 5, C 2) that is
+// 2.0e10 pairs, far above its 56 MB of bytes. What
 // the design does about it: nothing beyond keeping the inner loop to those
 // instructions and shared-memory broadcasts; the exponent on the tensor
 // cores (a Dekker-split product as on the TPU) is later work.
@@ -140,14 +142,11 @@ int launch(const float* fq, const float* fk, const float* v, float* out, int B, 
 template <int D>
 int dispatch(const float* fq, const float* fk, const float* v, float* out, int B, int Nq,
              int Nk, int d, int C, cudaStream_t s) {
-  switch (C < MAX_CC ? C : MAX_CC) {
+  // The CRF's two widths (C 1 for the norm, C 2 for the messages) get their own
+  // variants; any other C runs passes of MAX_CC, masking the channels >= C.
+  switch (C) {
     case 1: return launch<D, 1>(fq, fk, v, out, B, Nq, Nk, d, C, s);
     case 2: return launch<D, 2>(fq, fk, v, out, B, Nq, Nk, d, C, s);
-    case 3: return launch<D, 3>(fq, fk, v, out, B, Nq, Nk, d, C, s);
-    case 4: return launch<D, 4>(fq, fk, v, out, B, Nq, Nk, d, C, s);
-    case 5: return launch<D, 5>(fq, fk, v, out, B, Nq, Nk, d, C, s);
-    case 6: return launch<D, 6>(fq, fk, v, out, B, Nq, Nk, d, C, s);
-    case 7: return launch<D, 7>(fq, fk, v, out, B, Nq, Nk, d, C, s);
     default: return launch<D, MAX_CC>(fq, fk, v, out, B, Nq, Nk, d, C, s);
   }
 }
