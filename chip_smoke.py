@@ -21,24 +21,38 @@ Phases, one JSON line each:
                reset just before this main path is driven and read just after.
   5. refine  - the refinement kernel against its plain PyTorch version on the
                card: at [2,16,16], [1,20,24] and [2,37,53], both losses, C=2 and
-               3, windows 5 and 3, lr 1e-2 and 0.2 (where masks move), masks
-               exactly equal and loss rtol 1e-4; at the path's shape
-               [4,256,256], C=2, 20 steps, with S from a DeepLabV3-ResNet50
-               forward on synthetic pets, mask agreement >= 0.9999 and loss
-               rtol 1e-4 at lr 1e-2 and, with random S, at lr 0.1 (masks move);
-               with the model's S at lr 0.1, mismatches only where S is within
-               0.05 of the threshold; two launches bit-identical. Times with
-               CUDA events beside the bound.
-  6. weakly  - the training main path through run_weakly_supervised_alternating
+               3, windows 5 and 3, lr 1e-2 and 0.2 (where masks move), plan v1
+               and every other plan (v1sym at C=2, v2, v2_aff), masks exactly
+               equal and loss rtol 1e-4, v2 and v2_aff also equal to v1 (loss
+               rtol 1e-5); at the path's shape [4,256,256], C=2, 20 steps, with S
+               from a DeepLabV3-ResNet50 forward on synthetic pets, v1, v1sym and
+               v2_aff: mask agreement >= 0.9999 and loss rtol 1e-4 at lr 1e-2
+               and, with random S, at lr 0.1 (masks move); with the model's S at
+               lr 0.1, mismatches only where S is within 0.05 of the threshold;
+               v2_aff equal to v1; two launches bit-identical. Every plan's time
+               (CUDA events) at [4,256,256] ncut 20 steps, [8,256,256] 10 steps
+               and [4,256,256] boundary 75 steps, beside the bound.
+  6. window  - the window-loss kernels (sum and gradient, through the autograd
+               Function) against the plain losses on the card: the fuzz shapes
+               [2,11,13,2] w3, [2,16,24,3] w5, [2,9,32,2] w7 and the full width
+               [8,256,256,2] w5 on synthetic pets, both losses, values rtol 1e-5,
+               gradients rtol 1e-4 / atol 1e-7, two launches bit-identical;
+               forward, backward and plain times beside the bounds. Then the
+               path: one image's refinement as 20 Adam steps under autograd
+               through fused_local_normalized_cut_loss, the kernels' counts reset
+               just before and read just after (20 each), masks equal to
+               refine_plain's and loss rtol 1e-4, timed beside K1.
+  7. weakly  - the training main path through run_weakly_supervised_alternating
                at full width: ResNet-50 CAM classifier (37 classes, 224², layer4
                dilated) → LayerCAM → pseudo-masks → DeepLabV3-ResNet50 os8
                (256², batch 4) ↔ refinement (256², C=2, window 5, 20 steps,
-               ncut). Cut in depth only (listed in the line). Both kernels'
-               launch counts are reset just before and read just after; then one
-               refinement-sweep batch on the card against the same weights on
-               the CPU, at the path's lr and at lr 0.1 (mask agreement >= 0.995),
-               and a device-time breakdown of one training step.
-  7. crf     - the bilateral-filter kernel against its plain PyTorch version on
+               ncut; plan "auto" = v1sym). Cut in depth only (listed in the
+               line). Both kernels' launch counts are reset just before and read
+               just after; then one refinement-sweep batch on the card against
+               the same weights on the CPU, at the path's lr and at lr 0.1 (mask
+               agreement >= 0.995), and a device-time breakdown of one training
+               step.
+  8. crf     - the bilateral-filter kernel against its plain PyTorch version on
                the card: ragged 531x187 with d 5 and C 1, 2, 3; d 20 with C 128;
                a batch of 3 with different features per image (rtol 1e-4, atol
                1e-5); the reference's magnitudes against a float64 sum (max
@@ -46,14 +60,14 @@ Phases, one JSON line each:
                [32,50176]x[32,12544], d 5, C 2, against the plain version on 2
                of the 32 images (rtol 1e-4) and two launches bit-identical.
                Times with CUDA events beside the bound.
-  8. cam_fusion - the LayerCAM-fusion kernel against its plain version at the
+  9. cam_fusion - the LayerCAM-fusion kernel against its plain version at the
                full-width classifier's layer3 and layer4 shapes (its own
                activations and gradients on synthetic pets) and at a ragged
                [2,130,7,9] (atol 1e-5); then the path: layercam(fusion="pallas")
                against fusion="xla" at 224², batch 32 (atol 1e-5), the kernel's
                count reset just before and read just after. Times beside the
                bound.
-  9. weakly_crf - the CRF pseudo-mask path through
+ 10. weakly_crf - the CRF pseudo-mask path through
                run_weakly_supervised_alternating at full width: as weakly, with
                mask.use_crf (the reference's parameters: subsampled, stride 2, 5
                iterations, sigma 1/50/5, compat 2/10) and seg.loss_fn
@@ -61,9 +75,22 @@ Phases, one JSON line each:
                just after (the bilateral kernel must launch ceil(n/32)*6 times);
                then on 32 train images with the run's classifier: CRF masks from
                the kernel against the plain filter on the card (>= 0.999), the
-               card against the CPU on 2 images (>= 0.999), and subsampled
+               card against the CPU on 1 image (>= 0.999), and subsampled
                against attention per image (mean >= 0.99).
-Then the card's name and power limit, the kernels line, and the last line
+ 11. weakly_boundary - the reference's boundary-loss protocol
+               (AlternatingDirectionBoundaryLoss.py:153-206) through
+               run_weakly_supervised_alternating at full width, set by the CLI's
+               dotted overrides (refine.loss boundary, num_steps 75, lambda 0.5,
+               sigma_space 10, one sweep per round, CAM threshold 0.5); models,
+               data and depth cuts as weakly with one alternation; the counts
+               reset just before and read just after (K1 once per batch of 4,
+               all v1sym; K2); the fraction of mask pixels the sweep changed;
+               then one refinement batch of 1 image on the card against the CPU
+               with the same weights (>= 0.995).
+Then the script's seconds by phase, the card's name and power limit, the
+kernels line (each kernel's ``ms`` is its device time per call from a
+torch.profiler trace, ``call_ms`` the CUDA-event time of a whole call), and
+the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: no result is
 printed. Exits non-zero without a CUDA device.
 """
@@ -111,6 +138,52 @@ def cuda_ms(fn, runs: int = 25, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, runs: int = 10, warmup: int = 2):
+    """Device time per call of what ``fn`` runs on the card, from a
+    torch.profiler CUDA trace: (total ms, {kernel name: ms}), or (None, {}) if
+    the trace holds no device time. Unlike cuda_ms it leaves out the host's
+    time between launches, which dominates a call of a kernel of tens of µs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            by_name[e.key] = us / runs / 1e3
+    return (sum(by_name.values()) if by_name else None), by_name
+
+
+def kernel_ms(fn, runs: int = 10, warmup: int = 2) -> dict:
+    """{"ms": device time per call (events time if the trace has none),
+    "call_ms": CUDA-event time per call, "ms_from": which of the two}."""
+    dev, _ = device_ms(fn, runs, warmup)
+    call = cuda_ms(fn, runs=runs, warmup=warmup)
+    return {"ms": call if dev is None else dev, "call_ms": call,
+            "ms_from": "cuda_events" if dev is None else "profiler"}
+
+
+def short_name(kernel: str) -> str:
+    """A kernel's name from the profiler without its return type, namespace
+    and arguments (template arguments kept)."""
+    name = kernel.replace("(anonymous namespace)::", "").split("(")[0]
+    depth, start = 0, 0
+    for i, ch in enumerate(name):  # the last "::" outside template brackets
+        depth += (ch == "<") - (ch == ">")
+        if depth == 0 and name.startswith("::", i):
+            start = i + 2
+    return name[start:].removeprefix("void ").strip()
 
 
 def phase_device():
@@ -439,16 +512,23 @@ def synthetic_path_batch(model, n: int, size: int, seed: int):
     return S, x.contiguous(), masks
 
 
+def loss_rel_err(got, want) -> float:
+    return abs(float(got) - float(want)) / abs(float(want))
+
+
 def phase_refine():
     import torch
 
     from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
     from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
-    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda, refine_plain
+    from weaklysuperviseddl_tpu_torch.ops.refine import PLANS, refine_cuda, refine_plain
 
     # lr 1e-2 (the path's): a logit moves about lr per Adam step, so in 8 steps
-    # no pixel can leave its one-hot start; at lr 0.2 many cross the threshold
-    checks, max_err = [], 0.0
+    # no pixel can leave its one-hot start; at lr 0.2 many cross the threshold.
+    # Every plan against plain; "v2" runs v1's kernel and "v2_aff" reads the
+    # same affinities from stored planes, so both must give v1's masks and a
+    # loss within rtol 1e-5 of v1's (bit-identical by design; counted below)
+    checks, max_err, v1_bits = [], 0.0, {"v2": 0, "v2_aff": 0}
     for shape in ((2, 16, 16), (1, 20, 24), (2, 37, 53)):
         for loss in ("ncut", "boundary"):
             for C in (2, 3):
@@ -461,9 +541,11 @@ def phase_refine():
                             S, rng.uniform(-1, 1, (*shape, 3)).astype(np.float32),
                             rng.integers(0, C, shape).astype(np.int32))]
                         kw = dict(num_steps=8, lr=lr, loss=loss, window_size=window)
-                        got_m, got_l = refine_cuda(*args, **kw)
-                        again_m, again_l = refine_cuda(*args, **kw)
+                        got_m, got_l = refine_cuda(*args, plan="v1", **kw)
+                        again_m, again_l = refine_cuda(*args, plan="v1", **kw)
                         want_m, want_l = refine_plain(*args, **kw)
+                        by_plan = {p: refine_cuda(*args, plan=p, **kw)
+                                   for p in PLANS[1:] if p != "v1sym" or C == 2}
                         torch.cuda.synchronize()
                         err = abs(float(got_l) - float(want_l))
                         max_err = max(max_err, err)
@@ -474,8 +556,19 @@ def phase_refine():
                               f"refine differs between launches: {case}")
                         changed = float((got_m != (args[2] == 1)).float().mean())
                         check(lr < 0.1 or changed > 0.05, f"refine moved no mask: {case}")
+                        for plan, (pm, pl) in by_plan.items():
+                            check(torch.equal(pm, want_m),
+                                  f"refine plan {plan} masks differ from plain: {case}")
+                            check(loss_rel_err(pl, want_l) <= 1e-4,
+                                  f"refine plan {plan} loss off plain: {case}")
+                            max_err = max(max_err, abs(float(pl) - float(want_l)))
+                            if plan in v1_bits:
+                                check(torch.equal(pm, got_m) and loss_rel_err(pl, got_l) <= 1e-5,
+                                      f"refine plan {plan} differs from v1: {case}")
+                                v1_bits[plan] += float(pl) == float(got_l)
                         checks.append({"shape": list(shape), "loss": loss, "C": C,
                                        "window": window, "lr": lr, "changed": changed,
+                                       "plans": ["v1", *by_plan],
                                        "loss_rel_err": err / abs(float(want_l))})
 
     # the path's shape, S from DeepLabV3-ResNet50 (random weights, bias centred)
@@ -483,7 +576,7 @@ def phase_refine():
     # the model's S. Near convergence Adam steps by about lr·sign(g), so at lr
     # 0.1 a pixel whose S is near the threshold ends on the side float noise
     # picks: with the model's S (near 0.5 over wide areas) mismatches are
-    # allowed only there
+    # allowed only there. v1 and v1sym against plain, v2_aff against v1.
     model = init_weights(DeepLabV3(2, 50, 1.0), torch.Generator().manual_seed(1)).eval().cuda()
     centre_classifier_bias(model, _requests(np.random.default_rng(1), 4, (256, 256)), 256)
     S, x, masks = synthetic_path_batch(model, 4, 256, seed=5)
@@ -491,51 +584,277 @@ def phase_refine():
     S_rand = rng.uniform(0.1, 1, tuple(S.shape)).astype(np.float32)
     S_rand = torch.from_numpy(S_rand / S_rand.sum(-1, keepdims=True)).cuda()
     path = {}
+    # ---- v2_aff's main path: its count from 0, the full-width runs, read after ----
+    refine_cuda.plan_launches = dict.fromkeys(PLANS, 0)
     for name, S_case, lr in (("model_S_lr_0.01", S, 1e-2), ("random_S_lr_0.1", S_rand, 0.1),
                              ("model_S_lr_0.1", S, 0.1)):
-        got_m, got_l = refine_cuda(S_case, x, masks, lr=lr)
-        again_m, again_l = refine_cuda(S_case, x, masks, lr=lr)
         want_m, want_l = refine_plain(S_case, x, masks, lr=lr)
-        torch.cuda.synchronize()
-        agree = float((got_m == want_m).float().mean())
-        err = abs(float(got_l) - float(want_l))
-        max_err = max(max_err, err)
         near = (S_case[..., 1] - 0.5).abs()
-        far_mismatch = int(((got_m != want_m) & (near > 0.05)).sum())
-        if name == "model_S_lr_0.1":
-            check(agree >= 0.999 and far_mismatch == 0,
-                  f"refine masks differ away from the threshold at [4,256,256], {name}: "
-                  f"agreement {agree}, {far_mismatch} px with |S-0.5| > 0.05")
-        else:
-            check(agree >= 0.9999, f"refine mask agreement {agree} < 0.9999 at [4,256,256], {name}")
-        check(err <= 1e-4 * abs(float(want_l)), f"refine loss off at [4,256,256], {name}: {err}")
-        check(torch.equal(again_m, got_m) and float(again_l) == float(got_l),
-              f"refine differs between launches at [4,256,256], {name}")
-        changed = float((got_m != masks).float().mean())
-        check(lr < 0.05 or changed > 0.01, f"refine moved no mask at [4,256,256], {name}")
-        path[name] = {"mask_agreement": agree, "mismatched_px": int((got_m != want_m).sum()),
-                      "mismatched_px_far_from_threshold": far_mismatch,
-                      "px_with_S_within_0.05_of_threshold": int((near <= 0.05).sum()),
-                      "changed_frac": changed, "loss": float(got_l),
-                      "loss_rel_err": err / abs(float(want_l))}
+        path[name] = {"px_with_S_within_0.05_of_threshold": int((near <= 0.05).sum())}
+        runs = {}
+        for plan in ("v1", "v1sym", "v2_aff"):
+            got_m, got_l = refine_cuda(S_case, x, masks, lr=lr, plan=plan)
+            again_m, again_l = refine_cuda(S_case, x, masks, lr=lr, plan=plan)
+            torch.cuda.synchronize()
+            runs[plan] = (got_m, got_l)
+            check(torch.equal(again_m, got_m) and float(again_l) == float(got_l),
+                  f"refine {plan} differs between launches at [4,256,256], {name}")
+            agree = float((got_m == want_m).float().mean())
+            err = abs(float(got_l) - float(want_l))
+            max_err = max(max_err, err)
+            far_mismatch = int(((got_m != want_m) & (near > 0.05)).sum())
+            if name == "model_S_lr_0.1":
+                check(agree >= 0.999 and far_mismatch == 0,
+                      f"refine {plan} masks differ away from the threshold at [4,256,256], "
+                      f"{name}: agreement {agree}, {far_mismatch} px with |S-0.5| > 0.05")
+            else:
+                check(agree >= 0.9999,
+                      f"refine {plan} mask agreement {agree} < 0.9999 at [4,256,256], {name}")
+            check(err <= 1e-4 * abs(float(want_l)),
+                  f"refine {plan} loss off at [4,256,256], {name}: {err}")
+            changed = float((got_m != masks).float().mean())
+            check(lr < 0.05 or changed > 0.01, f"refine moved no mask at [4,256,256], {name}")
+            path[name][plan] = {"mask_agreement": agree,
+                                "mismatched_px": int((got_m != want_m).sum()),
+                                "mismatched_px_far_from_threshold": far_mismatch,
+                                "changed_frac": changed, "loss": float(got_l),
+                                "loss_rel_err": err / abs(float(want_l))}
+        (v1_m, v1_l), (aff_m, aff_l) = runs["v1"], runs["v2_aff"]
+        aff_agree = float((aff_m == v1_m).float().mean())
+        check(aff_agree >= 0.9999 and torch.equal(aff_m, v1_m) and
+              loss_rel_err(aff_l, v1_l) <= 1e-5,
+              f"refine v2_aff differs from v1 at [4,256,256], {name}: agreement {aff_agree}")
+        path[name]["v2_aff_vs_v1"] = {"mask_agreement": aff_agree,
+                                      "loss_bit_identical": float(aff_l) == float(v1_l)}
+    aff_launches = refine_cuda.plan_launches["v2_aff"]
+    check(aff_launches > 0, "the full-width runs never launched plan v2_aff")
+
+    # every plan's time at three configurations: the ncut path's [4,256,256]
+    # (C=2, 20 steps), scripts/bench_refine_plans.py's [8,256,256] (10 steps),
+    # and the boundary protocol's [4,256,256] (75 steps, lambda 0.5, sigma_space 10)
+    S8, x8, masks8 = synthetic_path_batch(model, 8, 256, seed=6)
+    boundary_kw = dict(loss="boundary", num_steps=75, lambda_boundary=0.5, sigma_space=10.0)
+    configs = {"ncut_4x256_20_steps": ((S, x, masks), {}, (4, 256, 256), 20, "ncut"),
+               "ncut_8x256_10_steps": ((S8, x8, masks8), {"num_steps": 10}, (8, 256, 256), 10,
+                                       "ncut"),
+               "boundary_4x256_75_steps": ((S, x, masks), boundary_kw, (4, 256, 256), 75,
+                                           "boundary")}
+    plan_ms, plan_call_ms, plan_kernels = {}, {}, {}
+    for cname, (inputs, kw, shape, steps, loss) in configs.items():
+        times, calls, kernels = {}, {}, {}
+        for plan in PLANS:
+            fn = lambda: refine_cuda(*inputs, plan=plan, **kw)
+            dev, by_kernel = device_ms(fn, runs=5)
+            calls[plan] = cuda_ms(fn, runs=10)
+            times[plan] = calls[plan] if dev is None else dev
+            kernels[plan] = {}
+            for k, ms in by_kernel.items():
+                kernels[plan][short_name(k)] = kernels[plan].get(short_name(k), 0.0) + ms
+        bound_ms, bound_by, _ = refine_bound(shape, 2, 5, steps, loss)
+        plan_ms[cname] = {**times, "fastest": min(times, key=times.get), "bound_ms": bound_ms,
+                          "bound_by": bound_by}
+        plan_call_ms[cname] = calls
+        plan_kernels[cname] = kernels
+
     shape = tuple(masks.shape)
     bound_ms, bound_by, ops = refine_bound(shape, 2, 5, 20, "ncut")
     by_steps = {n: cuda_ms(lambda: refine_cuda(S, x, masks, num_steps=n), runs=10)
                 for n in (0, 10)}
     timing = {
-        "ms": cuda_ms(lambda: refine_cuda(S, x, masks), runs=20),
+        "ms": plan_ms["ncut_4x256_20_steps"]["v1sym"],  # "auto" at C=2
+        "ms_v1": plan_ms["ncut_4x256_20_steps"]["v1"],
+        "ms_v2_aff": plan_ms["ncut_4x256_20_steps"]["v2_aff"],
+        "call_ms": plan_call_ms["ncut_4x256_20_steps"]["v1sym"],
+        "call_ms_v2_aff": plan_call_ms["ncut_4x256_20_steps"]["v2_aff"],
         "plain_ms": cuda_ms(lambda: refine_plain(S, x, masks), runs=5, warmup=1),
         "bound_ms": bound_ms, "bound_by": bound_by, "gflop": ops / 1e9,
         "ms_at_0_and_10_steps": by_steps,
-        "max_abs_err": max(max_err, err), "shape": list(shape), "C": 2, "window": 5,
-        "steps": 20, "loss": "ncut",
+        "max_abs_err": max_err, "shape": list(shape), "C": 2, "window": 5,
+        "steps": 20, "loss": "ncut", "v2_aff_launches": aff_launches,
     }
     emit("refine", checks=len(checks), small_shapes_equal=True,
          small_max_loss_rel_err=max(c["loss_rel_err"] for c in checks),
          small_min_changed_at_lr_0_2=min(c["changed"] for c in checks if c["lr"] > 0.1),
-         path_cases=path, fg_frac_before=float(masks.float().mean()), kernels=["refine"],
-         **timing)
-    return timing
+         small_loss_bit_identical_to_v1=v1_bits,
+         path_cases=path, fg_frac_before=float(masks.float().mean()),
+         plan_ms=plan_ms, plan_call_ms=plan_call_ms, plan_kernel_ms=plan_kernels,
+         launches_main_path={"v2_aff": aff_launches},
+         kernels=["refine", "refine_v2_aff"], **timing)
+    return timing, (S, x, masks), (S8, x8)
+
+
+def window_work(B: int, H: int, W: int, C: int, window: int, backward: bool):
+    """(bytes, fp32 operations) the window sum, or its gradient, needs at the
+    least, from its shapes. Bytes: probs and the image read once and,
+    backward, the gradient written once. Operations: the K colour affinities
+    once per pixel (11 each, as refine_work counts them) and per offset and
+    class 3 (d, a·d, a·d·d into the sum) or 4 (the centre and mirror terms of
+    the gradient, each a difference and a multiply-add)."""
+    K = window * window - 1
+    px = B * H * W
+    ops = px * (11 * K + (4 if backward else 3) * K * C)
+    nbytes = px * 4 * (C + 3 + (C if backward else 0))
+    return nbytes, ops
+
+
+def autograd_refinement(S, images, masks, steps: int, lr: float, lambda_boundary=0.1,
+                        sigma_color=0.1, window=5):
+    """One image's ncut refinement written as a user of the window kernels
+    would write it: Adam on X under torch.autograd, the window term through
+    fused_local_normalized_cut_loss (one forward and one backward kernel per
+    step; it softmaxes q again, as the reference's criterion does). Returns
+    (uint8 mask, summed step loss)."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.ops.window import fused_local_normalized_cut_loss
+
+    x = torch.nn.functional.one_hot(masks.long(), S.shape[-1]).float().requires_grad_(True)
+    opt = torch.optim.Adam([x], lr=lr)
+    s_log_s = torch.where(S > 0, S * torch.log(torch.where(S > 0, S, torch.ones_like(S))),
+                          torch.zeros_like(S)).sum()
+    total = torch.zeros((), device=S.device)
+    for _ in range(steps):
+        q = torch.softmax(x, dim=-1)
+        kl = s_log_s - (S * torch.log(q + 1e-8)).sum()
+        w = fused_local_normalized_cut_loss(q, images, sigma_color, window)
+        loss = kl + lambda_boundary * kl.detach() / (w.detach() + 1e-6) * w
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        total = total + loss.detach()
+    return (torch.softmax(x.detach(), dim=-1)[..., 1] > 0.5).to(torch.uint8), total
+
+
+def phase_window(path_batch, batch8):
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.losses.window import boundary_loss, local_normalized_cut_loss
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda, refine_plain
+    from weaklysuperviseddl_tpu_torch.ops.window import (
+        fused_boundary_loss,
+        fused_local_normalized_cut_loss,
+        window_sum_cuda,
+        window_sum_grad_cuda,
+        window_sum_grad_plain,
+        window_sum_plain,
+    )
+
+    def value_and_grad(fn, x):
+        p = x.clone().requires_grad_(True)
+        value = fn(p)
+        value.backward()
+        return value.detach(), p.grad
+
+    # the fuzz shapes of tests/test_fuzz_kernels.py (random inputs), then the
+    # full width: the refinement's [8,256,256,2] on synthetic pets (S from
+    # DeepLabV3, the normalised images), both losses at the refinement's sigmas
+    S8, x8 = batch8
+    cases, err = [], {"value": 0.0, "grad": 0.0}
+    for B, H, W, C, ws in ((2, 11, 13, 2, 3), (2, 16, 24, 3, 5), (2, 9, 32, 2, 7),
+                           (8, 256, 256, 2, 5)):
+        if H == 256:
+            preds, images, sc, ss = S8, x8, 0.1, 5.0
+        else:
+            rng = np.random.default_rng(H * W + C + ws)
+            preds = torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(np.float32)).cuda()
+            images = torch.from_numpy(rng.uniform(0, 1, (B, H, W, 3)).astype(np.float32)).cuda()
+            sc, ss = 0.07, 4.0
+        for loss in ("ncut", "boundary"):
+            if loss == "ncut":
+                x = preds
+                fused = lambda p: fused_local_normalized_cut_loss(p, images, sc, ws)
+                plain = lambda p: local_normalized_cut_loss(p, images, sc, ws)
+            else:
+                x = torch.softmax(preds, -1)
+                fused = lambda p: fused_boundary_loss(p, images, 0.1, ss, ws)
+                plain = lambda p: boundary_loss(p, images, 0.1, ss, ws)
+            got, got_g = value_and_grad(fused, x)
+            again, again_g = value_and_grad(fused, x)
+            want, want_g = value_and_grad(plain, x)
+            torch.cuda.synchronize()
+            case = f"[{B},{H},{W},{C}] window {ws} {loss}"
+            check(torch.allclose(got, want, rtol=1e-5, atol=0),
+                  f"window loss differs from plain: {case}: {float(got)} vs {float(want)}")
+            check(torch.allclose(got_g, want_g, rtol=1e-4, atol=1e-7),
+                  f"window gradient differs from plain: {case}")
+            check(torch.equal(again, got) and torch.equal(again_g, got_g),
+                  f"window kernels differ between launches: {case}")
+            e_v, e_g = float((got - want).abs()), float((got_g - want_g).abs().max())
+            err = {"value": max(err["value"], e_v), "grad": max(err["grad"], e_g)}
+            row = {"case": case, "value": float(got), "value_abs_err": e_v,
+                   "value_rel_err": e_v / abs(float(want)), "grad_max_abs_err": e_g,
+                   "grad_max": float(want_g.abs().max())}
+            if H == 256:
+                # the normalised gradient is ~1e-8 here, inside atol 1e-7: hold
+                # the raw sum's gradient to plain relative to its largest entry
+                probs = torch.softmax(x, -1).contiguous() if loss == "ncut" else x
+                sigmas = (sc, None) if loss == "ncut" else (0.1, ss)
+                kg = window_sum_grad_cuda(probs, images, *sigmas, ws)
+                pg = window_sum_grad_plain(probs, images, *sigmas, ws)
+                row["raw_grad_err_over_max"] = float((kg - pg).abs().max() / pg.abs().max())
+                check(row["raw_grad_err_over_max"] <= 1e-4,
+                      f"window raw-sum gradient differs from plain: {case}: {row}")
+            cases.append(row)
+
+    # the kernels alone at full width: ncut on t = softmax(S) (what the
+    # refinement's window term sees), and boundary on S
+    t8 = torch.softmax(S8, -1).contiguous()
+    nbytes, ops = window_work(8, 256, 256, 2, 5, False)
+    fwd_bound, fwd_by = roofline(nbytes, ops)
+    nbytes_b, ops_b = window_work(8, 256, 256, 2, 5, True)
+    bwd_bound, bwd_by = roofline(nbytes_b, ops_b)
+    fwd = kernel_ms(lambda: window_sum_cuda(t8, x8, 0.1, None, 5), runs=50, warmup=5)
+    bwd = kernel_ms(lambda: window_sum_grad_cuda(t8, x8, 0.1, None, 5), runs=50, warmup=5)
+    _, fwd_kernels = device_ms(lambda: window_sum_cuda(t8, x8, 0.1, None, 5), runs=20)
+    timing = {
+        "fwd_ms": fwd["ms"], "fwd_call_ms": fwd["call_ms"], "ms_from": fwd["ms_from"],
+        "fwd_kernel_ms": {short_name(k): v for k, v in fwd_kernels.items()},
+        "bwd_ms": bwd["ms"], "bwd_call_ms": bwd["call_ms"],
+        "fwd_plain_ms": cuda_ms(lambda: window_sum_plain(t8, x8, 0.1, None, 5), runs=10),
+        "bwd_plain_ms": cuda_ms(lambda: window_sum_grad_plain(t8, x8, 0.1, None, 5), runs=10),
+        "boundary_fwd_ms": kernel_ms(lambda: window_sum_cuda(S8, x8, 0.1, 5.0, 5), runs=50,
+                                     warmup=5)["ms"],
+        "boundary_bwd_ms": kernel_ms(lambda: window_sum_grad_cuda(S8, x8, 0.1, 5.0, 5), runs=50,
+                                     warmup=5)["ms"],
+        "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by, "fwd_gflop": ops / 1e9,
+        "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by, "bwd_gflop": ops_b / 1e9,
+        "shape": [8, 256, 256, 2], "window": 5,
+    }
+
+    # ---- the main path: counts from 0, one image's refinement as 20 Adam
+    # steps under autograd through the window kernels, counts read after ----
+    S, x, masks = (t[:1].contiguous() for t in path_batch)
+    window_sum_cuda.launches = 0
+    window_sum_grad_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_m, got_l = autograd_refinement(S, x, masks, steps=20, lr=1e-2)
+    torch.cuda.synchronize()
+    autograd_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"window_fwd": window_sum_cuda.launches,
+                "window_bwd": window_sum_grad_cuda.launches}
+    check(launches == {"window_fwd": 20, "window_bwd": 20},
+          f"the autograd refinement launched the window kernels {launches} times, not 20 each")
+    want_m, want_l = refine_plain(S, x, masks)
+    check(torch.equal(got_m, want_m), "autograd refinement masks differ from refine_plain's")
+    check(loss_rel_err(got_l, want_l) <= 1e-4,
+          f"autograd refinement loss {float(got_l)} off refine_plain's {float(want_l)}")
+    again_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        autograd_refinement(S, x, masks, steps=20, lr=1e-2)
+        torch.cuda.synchronize()
+        again_ms.append((time.perf_counter() - t0) * 1e3)
+    path = {"shape": [1, 256, 256, 2], "steps": 20, "lr": 1e-2,
+            "masks_equal_plain": True, "loss_rel_err": loss_rel_err(got_l, want_l),
+            "first_run_ms": autograd_ms, "ms": statistics.median(again_ms),
+            "k1_auto": kernel_ms(lambda: refine_cuda(S, x, masks), runs=20),
+            "k1_v1": kernel_ms(lambda: refine_cuda(S, x, masks, plan="v1"), runs=20)}
+    emit("window", cases=cases, value_rtol=1e-5, grad_rtol=1e-4, grad_atol=1e-7,
+         max_abs_err=err, autograd_refinement=path, launches_main_path=launches,
+         kernels=["window_fwd", "window_bwd"], **timing)
+    return {**timing, "launches": launches, "max_abs_err": err}
 
 
 def phase_weakly():
@@ -576,16 +895,19 @@ def phase_weakly():
     # ---- the main path: counts from 0, the pipeline, counts read after ----
     label_components_cuda.launches = 0
     refine_cuda.launches = 0
+    refine_cuda.plan_launches = dict.fromkeys(refine_cuda.plan_launches, 0)
     t0 = time.perf_counter()
     result = run_weakly_supervised_alternating(cfg, stopwatch=sw, log=lambda *_: None,
                                                device="cuda")
     wall = time.perf_counter() - t0
     launches = {"refine": refine_cuda.launches, "cc_label": label_components_cuda.launches}
+    plans = dict(refine_cuda.plan_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     n_train = len(result.mask_store)
     want_refine = math.ceil(n_train / cfg.seg.batch_size) * 2 * 2
     check(launches["refine"] == want_refine,
           f"refine launched {launches['refine']} times on the main path, expected {want_refine}")
+    check(plans["v1sym"] == want_refine, f"plan 'auto' ran {plans} at C=2, not v1sym")
     check(launches["cc_label"] > 0, "the main path never launched the cc kernel")
     m = result.metrics
     scalars = {k: m[k] for k in ("iou", "acc", "final_loss", "alt_iou", "alt_acc")}
@@ -627,8 +949,112 @@ def phase_weakly():
                  "loss": r.loss},
          cuts=cuts, synthetic_images=d.synthetic_size, train_images=n_train,
          wall_s=wall, phases=phases, metrics=m, peak_mem_gb=peak_gb,
-         launches_main_path=launches, card_cpu_sweep_agreement=agree,
+         launches_main_path=launches, refine_plans_main_path=plans,
+         card_cpu_sweep_agreement=agree,
          store_fg_frac=float(masks.mean()), seg_step_ms=step_ms)
+    return launches
+
+
+def phase_weakly_boundary():
+    import copy
+    import dataclasses
+    import math
+    from unittest import mock
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.config import ExperimentConfig, apply_overrides
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
+    from weaklysuperviseddl_tpu_torch.pipelines.weakly import run_weakly_supervised_alternating
+    from weaklysuperviseddl_tpu_torch.train import alternating
+    from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch
+
+    # the reference's boundary-loss protocol (AlternatingDirectionBoundaryLoss.py
+    # :153-206; the JAX compat surface's values), as the CLI's dotted overrides
+    protocol = {"alternating.refine.loss": "boundary", "alternating.refine.num_steps": "75",
+                "alternating.refine.lambda_boundary": "0.5",
+                "alternating.refine.sigma_space": "10", "alternating.refine_repeats": "1",
+                "mask.cam_thresh": "0.5"}
+    cuts = {"classifier.epochs": 2, "seg.epochs": 1, "alternating.num_alternations": 1,
+            "alternating.epochs_per_round": 1}
+    cfg = apply_overrides(ExperimentConfig(), {**protocol, **{k: str(v) for k, v in cuts.items()}})
+    base, r = ExperimentConfig(), cfg.alternating.refine
+    check((r.loss, r.num_steps, r.lambda_boundary, r.sigma_color, r.sigma_space, r.threshold,
+           r.lr, r.window_size, cfg.alternating.refine_repeats, cfg.mask.cam_thresh) ==
+          ("boundary", 75, 0.5, 0.1, 10.0, 0.5, 1e-2, 5, 1, 0.5),
+          f"weakly_boundary config is not the reference's protocol: {r}")
+    check(cfg.data == base.data and cfg.cam == base.cam
+          and cfg.seg == dataclasses.replace(base.seg, epochs=1)
+          and cfg.classifier == dataclasses.replace(base.classifier, epochs=2)
+          and cfg.mask == dataclasses.replace(base.mask, cam_thresh=0.5),
+          "weakly_boundary config cut more than depth")
+
+    # the fraction of mask pixels each refinement sweep changes, recorded around
+    # the pipeline's own sweep
+    changed = []
+    make_sweep = alternating.make_refine_sweep
+
+    def recording_sweep(model, rcfg, seg_size=256):
+        sweep = make_sweep(model, rcfg, seg_size)
+
+        def run(dev_masks, dev_images, idx_table):
+            before = dev_masks.clone()
+            total = sweep(dev_masks, dev_images, idx_table)
+            changed.append(float((dev_masks != before).float().mean()))
+            return total
+
+        return run
+
+    sw = Stopwatch("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts from 0, the pipeline, counts read after ----
+    label_components_cuda.launches = 0
+    refine_cuda.launches = 0
+    refine_cuda.plan_launches = dict.fromkeys(refine_cuda.plan_launches, 0)
+    t0 = time.perf_counter()
+    with mock.patch.object(alternating, "make_refine_sweep", recording_sweep):
+        result = run_weakly_supervised_alternating(cfg, stopwatch=sw, log=lambda *_: None,
+                                                   device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {"refine": refine_cuda.launches, "cc_label": label_components_cuda.launches}
+    plans = dict(refine_cuda.plan_launches)
+    n_train = len(result.mask_store)
+    want_refine = math.ceil(n_train / cfg.seg.batch_size)
+    check(launches["refine"] == want_refine and plans["v1sym"] == want_refine,
+          f"refine launched {launches['refine']} times ({plans}) on the boundary path, "
+          f"expected {want_refine}, all v1sym")
+    check(launches["cc_label"] > 0, "the boundary path never launched the cc kernel")
+    check(len(changed) == 1, f"{len(changed)} refinement sweeps, expected 1")
+    m = result.metrics
+    scalars = {k: m[k] for k in ("iou", "acc", "final_loss", "alt_iou", "alt_acc")}
+    check(all(math.isfinite(v) for v in scalars.values()), f"non-finite metrics {scalars}")
+    images, masks, _ = result.mask_store.as_arrays()
+
+    # ---- one refinement batch of 1 image, the card against the CPU, same weights ----
+    model = result.seg_state.model.eval()
+    cpu_model = copy.deepcopy(model).cpu()
+    table = torch.zeros((1, 1), dtype=torch.int64)
+    dev_masks = torch.from_numpy(masks[:1]).cuda()
+    cpu_masks = dev_masks.cpu().clone()
+    alternating.make_refine_sweep(model, r, 256)(dev_masks, torch.from_numpy(images[:1]).cuda(),
+                                                 table.cuda())
+    alternating.make_refine_sweep(cpu_model, r, 256)(cpu_masks, torch.from_numpy(images[:1]),
+                                                     table)
+    agree = float((dev_masks.cpu() == cpu_masks).float().mean())
+    check(agree >= 0.995, f"card/CPU boundary refinement agreement {agree} < 0.995")
+
+    phases = {name: {"seconds": sw.times[name], "calls": sw.counts[name],
+                     "img_per_s": sw.rate(name)} for name in sw.times}
+    emit("weakly_boundary", entry="run_weakly_supervised_alternating",
+         overrides=protocol, cuts=cuts, train_images=n_train, wall_s=wall, phases=phases,
+         metrics=m, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         launches_main_path=launches, refine_plans_main_path=plans,
+         refine_changed_frac=changed[0],
+         card_cpu_refine_agreement={"agreement": agree, "images": 1,
+                                    "changed_frac_cpu": float((cpu_masks.numpy() != masks[:1])
+                                                              .mean())},
+         store_fg_frac=float(masks.mean()))
     return launches
 
 
@@ -766,8 +1192,8 @@ def phase_crf():
     bound_ms, bound_by = roofline(*bilateral_work(*shape))
     norm_v = torch.ones_like(v[..., :1])
     timing = {
-        "ms": cuda_ms(lambda: gaussian_filter_cuda(fq, fk, v), runs=10, warmup=2),
-        "ms_C1": cuda_ms(lambda: gaussian_filter_cuda(fq, fk, norm_v), runs=10, warmup=2),
+        **kernel_ms(lambda: gaussian_filter_cuda(fq, fk, v), runs=10, warmup=2),
+        "ms_C1": kernel_ms(lambda: gaussian_filter_cuda(fq, fk, norm_v), runs=10, warmup=2)["ms"],
         "plain_ms": cuda_ms(lambda: gaussian_filter_plain_cross(fq, fk, v), runs=2, warmup=1),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_ms_C1": roofline(*bilateral_work(*shape[:4], 1))[0],
@@ -836,7 +1262,7 @@ def phase_cam_fusion():
             bound_ms, bound_by = roofline(4 * B * h * w * (2 * C + 1), 3 * B * C * h * w)
             by_shape[name] = {
                 "shape": list(a.shape),
-                "ms": cuda_ms(lambda: cam_fusion_cuda(a, g), runs=50, warmup=5),
+                **kernel_ms(lambda: cam_fusion_cuda(a, g), runs=50, warmup=5),
                 "plain_ms": cuda_ms(lambda: cam_fusion_plain(a, g), runs=50, warmup=5),
                 "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -857,7 +1283,8 @@ def phase_cam_fusion():
                                  runs=3, warmup=1) for f in ("pallas", "xla")},
          launches_main_path=launches, kernels=["cam_fusion"])
     return {"launches": launches, "max_abs_err": max_err, "by_shape": by_shape,
-            "ms": layer4["ms"], "plain_ms": layer4["plain_ms"], "bound_ms": layer4["bound_ms"],
+            "ms": layer4["ms"], "call_ms": layer4["call_ms"], "plain_ms": layer4["plain_ms"],
+            "bound_ms": layer4["bound_ms"],
             "bound_by": layer4["bound_by"], "shape": layer4["shape"]}
 
 
@@ -950,13 +1377,15 @@ def phase_weakly_crf():
         plain_masks = crf_masks(resident)
     plain_agree = float((kernel_masks == plain_masks).mean())
     check(plain_agree >= 0.999, f"CRF masks, kernel vs plain filter on the card: {plain_agree}")
-    cpu2 = ResidentCams(resident.images_raw[:2].cpu(), resident.cams[:2].cpu(),
-                        resident.store_images[:2].cpu(), resident.image_size, 2)
+    # the plain CRF on the host's CPU takes about 40 s per image at 224²: one
+    # image (the kernel is held to the plain filter on the card on all 32)
+    cpu1 = ResidentCams(resident.images_raw[:1].cpu(), resident.cams[:1].cpu(),
+                        resident.store_images[:1].cpu(), resident.image_size, 1)
     t_cpu = time.perf_counter()
-    cpu_masks = crf_masks(cpu2)
+    cpu_masks = crf_masks(cpu1)
     cpu_s = time.perf_counter() - t_cpu
-    cpu_agree = float((kernel_masks[:2] == cpu_masks).mean())
-    check(cpu_agree >= 0.999, f"CRF masks, card vs CPU on 2 images: {cpu_agree}")
+    cpu_agree = float((kernel_masks[:1] == cpu_masks).mean())
+    check(cpu_agree >= 0.999, f"CRF masks, card vs CPU on 1 image: {cpu_agree}")
     exact_masks = crf_masks(resident, bilat_backend="attention")
     per_image = (kernel_masks == exact_masks).reshape(32, -1).mean(axis=1)
     check(per_image.mean() >= 0.99,
@@ -983,7 +1412,7 @@ def phase_weakly_crf():
          phases=phases, metrics=metrics, peak_mem_gb=peak_gb, launches_main_path=launches,
          expected_bilateral_launches=want_k3,
          masks_kernel_vs_plain_agreement=plain_agree, masks_card_vs_cpu_agreement=cpu_agree,
-         cpu_crf_2_images_s=cpu_s,
+         cpu_crf_1_image_s=cpu_s,
          subsampled_vs_attention={"mean": float(per_image.mean()),
                                   "min": float(per_image.min())},
          crf_fg_frac=fg, batch32_ms=batch_ms)
@@ -998,22 +1427,33 @@ def main() -> int:
         return 1
     import weaklysuperviseddl_tpu_torch  # noqa: F401  (fails here, before any output, outside a checkout)
 
-    smi = phase_device()
-    phase_build()
-    max_err = phase_cc()
-    launches, served_masks = phase_serve()
-    refine_timing = phase_refine()
-    weakly_launches = phase_weakly()
-    crf_timing = phase_crf()
-    fusion = phase_cam_fusion()
-    crf_launches = phase_weakly_crf()
+    seconds, t_start = {}, time.perf_counter()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    max_err = timed("cc", phase_cc)
+    launches, served_masks = timed("serve", phase_serve)
+    refine_timing, path_batch, batch8 = timed("refine", phase_refine)
+    window = timed("window", phase_window, path_batch, batch8)
+    del path_batch, batch8
+    weakly_launches = timed("weakly", phase_weakly)
+    crf_timing = timed("crf", phase_crf)
+    fusion = timed("cam_fusion", phase_cam_fusion)
+    crf_launches = timed("weakly_crf", phase_weakly_crf)
+    boundary_launches = timed("weakly_boundary", phase_weakly_boundary)
 
     from weaklysuperviseddl_tpu_torch.masks.components import label_components
     from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
 
-    def by_path(name, serve=0, weakly=0, cam_fusion=0):
-        paths = {"serve": serve, "weakly": weakly, "cam_fusion": cam_fusion,
-                 "weakly_crf": crf_launches[name]}
+    def by_path(name, **paths):
+        paths["weakly_crf"] = crf_launches.get(name, 0)
+        paths["weakly_boundary"] = boundary_launches.get(name, 0)
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     # cc: on the masks the serving path gave it, the served argmax [64,256,256]
@@ -1025,7 +1465,7 @@ def main() -> int:
         "replaces": "weaklysuperviseddl_tpu/ops/pallas_cc.py:29",
         **by_path("cc_label", serve=launches, weakly=weakly_launches["cc_label"]),
         "max_abs_err": max_err,
-        "ms": cuda_ms(lambda: label_components_cuda(served_masks)),
+        **kernel_ms(lambda: label_components_cuda(served_masks), runs=25, warmup=3),
         "plain_ms": cuda_ms(lambda: label_components(served_masks), runs=20, warmup=1),
         "bound_ms": cc_bound_ms(shape),
         "bound_by": "bytes",
@@ -1037,13 +1477,63 @@ def main() -> int:
         "source": "weaklysuperviseddl_tpu_torch/csrc/refine.cu",
         "replaces": "weaklysuperviseddl_tpu/ops/pallas_refine.py:45",
         **by_path("refine", weakly=weakly_launches["refine"]),
+        "plan_auto_ran": "v1sym",  # C=2; every path launch checked to be v1sym
         "max_abs_err": refine_timing["max_abs_err"],  # of the loss; masks equal or >= 0.9999
-        "ms": refine_timing["ms"],
+        "ms": refine_timing["ms"],  # v1sym
+        "ms_v1": refine_timing["ms_v1"],
+        "call_ms": refine_timing["call_ms"],
         "plain_ms": refine_timing["plain_ms"],
         "bound_ms": refine_timing["bound_ms"],
         "bound_by": refine_timing["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the refinement
         "shape": refine_timing["shape"],
+    }, {
+        "name": "refine_v2_aff",
+        "route": "cuda",
+        "source": "weaklysuperviseddl_tpu_torch/csrc/refine.cu",
+        "replaces": "weaklysuperviseddl_tpu/ops/pallas_refine.py:230",
+        # the full-width plan comparisons of the refine phase; no pipeline runs v2_aff
+        "launches": refine_timing["v2_aff_launches"],
+        "launches_by_path": {"refine_plans": refine_timing["v2_aff_launches"]},
+        "max_abs_err": refine_timing["max_abs_err"],  # of the loss, every plan against plain
+        "ms": refine_timing["ms_v2_aff"],
+        "call_ms": refine_timing["call_ms_v2_aff"],
+        "plain_ms": refine_timing["plain_ms"],
+        "bound_ms": refine_timing["bound_ms"],  # the function is K1's
+        "bound_by": refine_timing["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the refinement
+        "shape": refine_timing["shape"],
+    }, {
+        "name": "window_fwd",
+        "route": "cuda",
+        "source": "weaklysuperviseddl_tpu_torch/csrc/window.cu",
+        "replaces": "weaklysuperviseddl_tpu/ops/pallas_window.py:61",
+        # the window phase's autograd refinement (20 Adam steps, one image)
+        "launches": window["launches"]["window_fwd"],
+        "launches_by_path": {"window": window["launches"]["window_fwd"]},
+        "max_abs_err": window["max_abs_err"]["value"],  # of the losses, against plain
+        "ms": window["fwd_ms"],
+        "call_ms": window["fwd_call_ms"],
+        "plain_ms": window["fwd_plain_ms"],
+        "bound_ms": window["fwd_bound_ms"],
+        "bound_by": window["fwd_bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the window sum
+        "shape": window["shape"],
+    }, {
+        "name": "window_bwd",
+        "route": "cuda",
+        "source": "weaklysuperviseddl_tpu_torch/csrc/window.cu",
+        "replaces": "weaklysuperviseddl_tpu/ops/pallas_window.py:82",
+        "launches": window["launches"]["window_bwd"],
+        "launches_by_path": {"window": window["launches"]["window_bwd"]},
+        "max_abs_err": window["max_abs_err"]["grad"],  # of the losses' gradients
+        "ms": window["bwd_ms"],
+        "call_ms": window["bwd_call_ms"],
+        "plain_ms": window["bwd_plain_ms"],
+        "bound_ms": window["bwd_bound_ms"],
+        "bound_by": window["bwd_bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the window gradient
+        "shape": window["shape"],
     }, {
         "name": "bilateral",
         "route": "cuda",
@@ -1052,6 +1542,7 @@ def main() -> int:
         **by_path("bilateral"),
         "max_abs_err": crf_timing["max_abs_err"],  # at the path's shape, against plain
         "ms": crf_timing["ms"],
+        "call_ms": crf_timing["call_ms"],
         "plain_ms": crf_timing["plain_ms"],
         "bound_ms": crf_timing["bound_ms"],
         "bound_by": crf_timing["bound_by"],
@@ -1065,12 +1556,14 @@ def main() -> int:
         **by_path("cam_fusion", cam_fusion=fusion["launches"]),
         "max_abs_err": fusion["max_abs_err"],
         "ms": fusion["ms"],
+        "call_ms": fusion["call_ms"],
         "plain_ms": fusion["plain_ms"],
         "bound_ms": fusion["bound_ms"],
         "bound_by": fusion["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the fusion
         "shape": fusion["shape"],  # layer4; layer3 in the cam_fusion line
     }]}
+    emit("wall", seconds_by_phase=seconds, seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps(kernel_line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA kernels (connected components, refinement,
-the CRF's bilateral filter, the LayerCAM fusion) against their plain versions,
+"""The port on the card: the CUDA kernels (connected components, refinement
+and its plans, the window-loss sum and gradient, the CRF's bilateral filter,
+the LayerCAM fusion) against their plain versions,
 and the serving path on CUDA against the CPU. Needs an NVIDIA GPU and nvcc;
 skipped elsewhere. Imports no JAX, so it runs where JAX is absent:
 
@@ -105,6 +106,31 @@ def test_refine_kernel_path_shape(cuda, lr):
     np.testing.assert_allclose(float(got_l), float(want_l), rtol=1e-4)
 
 
+@pytest.mark.parametrize("loss", ["ncut", "boundary"])
+@pytest.mark.parametrize("shape,C", [((2, 16, 16), 2), ((1, 20, 24), 2), ((2, 37, 53), 3)])
+def test_refine_plans_equal_plain_and_v1(cuda, shape, C, loss):
+    """Every plan against plain (masks equal, loss rtol 1e-4); "v2" runs v1's
+    kernel and "v2_aff" reads the same affinities from stored planes, so both
+    give v1's bits."""
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda, refine_plain
+
+    S, images, masks = _refine_case(3, *shape, C, cuda)
+    kw = dict(num_steps=8, lr=0.2, loss=loss)
+    want_m, want_l = refine_plain(S, images, masks, **kw)
+    v1_m, v1_l = refine_cuda(S, images, masks, plan="v1", **kw)
+    for plan in ("v1sym", "v2", "v2_aff") if C == 2 else ("v2", "v2_aff"):
+        before = refine_cuda.plan_launches[plan]
+        got_m, got_l = refine_cuda(S, images, masks, plan=plan, **kw)
+        torch.cuda.synchronize()
+        assert refine_cuda.plan_launches[plan] == before + 1
+        assert torch.equal(got_m, want_m), plan
+        np.testing.assert_allclose(float(got_l), float(want_l), rtol=1e-4)
+        if plan != "v1sym":
+            assert torch.equal(got_m, v1_m) and float(got_l) == float(v1_l), plan
+    with pytest.raises(ValueError, match="v1sym"):
+        refine_cuda(*_refine_case(3, 1, 16, 16, 3, cuda), plan="v1sym")
+
+
 def test_refine_wrapper_routes_and_checks(cuda):
     from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
     from weaklysuperviseddl_tpu_torch.train.refine import refine_from_soft_predictions
@@ -123,6 +149,65 @@ def test_refine_wrapper_routes_and_checks(cuda):
         refine_cuda(S[:, :, ::2].contiguous(), images, masks)
     with pytest.raises(ValueError):
         refine_cuda(S.permute(0, 2, 1, 3), images, masks)
+
+
+@pytest.mark.parametrize("loss", ["ncut", "boundary"])
+@pytest.mark.parametrize("B,H,W,C,ws", [(2, 11, 13, 2, 3), (2, 16, 24, 3, 5), (2, 9, 32, 2, 7),
+                                        (1, 40, 35, 5, 5), (3, 64, 64, 2, 5)])
+def test_window_kernels_equal_plain(cuda, B, H, W, C, ws, loss):
+    """The losses through the kernels against the plain losses of
+    losses/window.py: values rtol 1e-5, gradients rtol 1e-4 / atol 1e-7 (the
+    JAX package's tolerances for its Pallas kernels); two launches give the
+    same bits. C=5 runs the kernels' class chunks."""
+    from weaklysuperviseddl_tpu_torch.losses.window import boundary_loss, local_normalized_cut_loss
+    from weaklysuperviseddl_tpu_torch.ops.window import (
+        fused_boundary_loss,
+        fused_local_normalized_cut_loss,
+        window_sum_cuda,
+        window_sum_grad_cuda,
+    )
+
+    rng = np.random.default_rng(H * W + C + ws)
+    preds = torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(np.float32)).to(cuda)
+    images = torch.from_numpy(rng.uniform(0, 1, (B, H, W, 3)).astype(np.float32)).to(cuda)
+    if loss == "ncut":
+        x = preds
+        fused = lambda p: fused_local_normalized_cut_loss(p, images, 0.07, ws)
+        plain = lambda p: local_normalized_cut_loss(p, images, 0.07, ws)
+    else:
+        x = torch.softmax(preds, -1)
+        fused = lambda p: fused_boundary_loss(p, images, 0.1, 4.0, ws)
+        plain = lambda p: boundary_loss(p, images, 0.1, 4.0, ws)
+    results = []
+    for fn in (fused, fused, plain):
+        p = x.clone().requires_grad_(True)
+        before = (window_sum_cuda.launches, window_sum_grad_cuda.launches)
+        value = fn(p)
+        value.backward()
+        torch.cuda.synchronize()
+        launched = (window_sum_cuda.launches - before[0], window_sum_grad_cuda.launches - before[1])
+        results.append((value.detach(), p.grad, launched))
+    (got, got_g, n), (again, again_g, _), (want, want_g, n_plain) = results
+    assert n == (1, 1) and n_plain == (0, 0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-7)
+    assert torch.equal(again, got) and torch.equal(again_g, got_g)
+
+
+def test_window_wrappers_check_their_input(cuda):
+    from weaklysuperviseddl_tpu_torch.ops.window import window_sum_cuda, window_sum_grad_cuda
+
+    probs = torch.rand((1, 12, 12, 2), device=cuda)
+    images = torch.rand((1, 12, 12, 3), device=cuda)
+    with pytest.raises(TypeError):
+        window_sum_cuda(probs.double(), images, 0.1, None, 5)
+    with pytest.raises(ValueError):
+        window_sum_cuda(probs, images, 0.1, None, 4)
+    with pytest.raises(ValueError):
+        window_sum_cuda(probs.permute(0, 2, 1, 3), images, 0.1, None, 5)
+    with pytest.raises(ValueError):
+        window_sum_grad_cuda(probs[:, :3, :3].contiguous(), images[:, :3, :3].contiguous(),
+                             0.1, None, 7)
 
 
 def test_predictor_on_card_matches_cpu(cuda):

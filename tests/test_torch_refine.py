@@ -12,12 +12,13 @@ from test_torch_models import jax_deeplab_numpy, port_from_jax
 from weaklysuperviseddl_tpu.config import RefineConfig as JaxRefineConfig
 from weaklysuperviseddl_tpu.losses.window import boundary_loss as jax_boundary
 from weaklysuperviseddl_tpu.losses.window import local_normalized_cut_loss as jax_ncut
+from weaklysuperviseddl_tpu.ops.pallas_refine import pallas_refine
 from weaklysuperviseddl_tpu.train.alternating import make_refine_sweep as jax_make_sweep
 from weaklysuperviseddl_tpu.train.refine import refine_from_soft_predictions as jax_refine
 from weaklysuperviseddl_tpu_torch.config import RefineConfig
 from weaklysuperviseddl_tpu_torch.data.preprocess import preprocess_batch
 from weaklysuperviseddl_tpu_torch.losses.window import boundary_loss, local_normalized_cut_loss
-from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda, refine_plain
+from weaklysuperviseddl_tpu_torch.ops.refine import PLANS, refine_cuda, refine_plain
 from weaklysuperviseddl_tpu_torch.train.alternating import _sweep_index_table, make_refine_sweep
 from weaklysuperviseddl_tpu_torch.train.refine import refine_from_soft_predictions
 from weaklysuperviseddl_tpu_torch.train.segmentation import _normalize_images
@@ -91,6 +92,38 @@ def test_plain_refinement_matches_jax_where_masks_move(loss):
     assert (got_m.numpy() != masks).mean() > 0.1
     np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
     np.testing.assert_allclose(float(got_l), float(want_l), rtol=1e-4)
+
+
+@pytest.mark.parametrize("plan", PLANS)
+def test_refinement_matches_every_jax_plan(plan):
+    """The port's refinement on the CPU (the plain version, the golden of
+    every plan of the kernel) against each plan of the JAX package's Pallas
+    kernel in interpret mode: masks equal, loss rtol 1e-4."""
+    S, images, masks = _case(4, 1, 16, 16, 2)
+    want_m, want_l = pallas_refine(jnp.asarray(S), jnp.asarray(images), jnp.asarray(masks),
+                                   num_steps=6, interpret=True, plan=plan)
+    got_m, got_l = refine_from_soft_predictions(torch.from_numpy(S), torch.from_numpy(images),
+                                                torch.from_numpy(masks), num_steps=6)
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    np.testing.assert_allclose(float(got_l), float(want_l), rtol=1e-4)
+
+
+def test_plan_checks_match_jax():
+    """"v1sym" needs C=2, in the JAX kernel and in the port; the port also
+    refuses a plan it does not know, before it looks at the tensors."""
+    S, images, masks = _case(5, 1, 16, 16, 3)
+    with pytest.raises(ValueError, match="v1sym"):
+        pallas_refine(jnp.asarray(S), jnp.asarray(images), jnp.asarray(masks), num_steps=1,
+                      interpret=True, plan="v1sym")
+    args = [torch.from_numpy(a) for a in (S, images, masks)]
+    for fn in (refine_cuda, refine_plain):
+        with pytest.raises(ValueError, match="v1sym"):
+            fn(*args, num_steps=1, plan="v1sym")
+        with pytest.raises(ValueError, match="unknown refinement plan"):
+            fn(*args, num_steps=1, plan="v3")
+    before = dict(refine_cuda.plan_launches)
+    refine_plain(*args, num_steps=1, plan="v2_aff")
+    assert refine_cuda.plan_launches == before
 
 
 def test_plain_refinement_follows_predictions():

@@ -1,8 +1,9 @@
 """Builds the port's CUDA sources into shared libraries with ``nvcc``.
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on first use
-into ``build/`` (listed in ``.gitignore``), named by a hash of its source so a
-changed source never loads a stale library. The libraries are loaded with
+into ``build/`` (listed in ``.gitignore``), named by a hash of its source and
+of the shared headers ``csrc/*.cuh``, so a changed source never loads a stale
+library. The libraries are loaded with
 ``ctypes`` by the module that wraps each kernel.
 """
 
@@ -36,7 +37,9 @@ def _nvcc() -> str:
 def _library_path(source: str) -> Path:
     """The shared library that ``csrc/<source>`` builds into."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 

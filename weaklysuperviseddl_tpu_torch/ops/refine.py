@@ -1,8 +1,9 @@
 """Alternating-direction mask refinement on the card: the wrapper of
 ``csrc/refine.cu``, and its plain PyTorch version.
 
-Port of the TPU kernel ``weaklysuperviseddl_tpu/ops/pallas_refine.py::_refine_kernel``
-(``pallas_refine``, plans v1/v1sym). Per image: X = one_hot(mask); ``num_steps``
+Port of the TPU kernels ``weaklysuperviseddl_tpu/ops/pallas_refine.py::_refine_kernel``
+(``pallas_refine``, plans v1/v1sym) and ``::_refine_kernel_v2`` (plans
+v2/v2_aff). Per image: X = one_hot(mask); ``num_steps``
 Adam steps (β 0.9/0.999, eps 1e-8, bias-corrected) on
 
     KL(S ‖ softmax X) + λ·W,   λ = λ_b·KL/(W + 1e-6) (a stop-gradient scalar),
@@ -17,6 +18,15 @@ kernel (one call per batch; the C entry point runs its launches in stream
 order and returns the first CUDA error); ``train/refine.py`` picks one. The
 kernel is built with ``nvcc`` at first use (``ops/build.py``) and loaded
 with ``ctypes``.
+
+``plan`` takes the TPU kernel's names. "auto" is "v1sym" for C=2, else "v1"
+(as ``pallas_refine``'s ``_pick_plan``). "v1sym" (C=2 only) sweeps the window
+for class 0 alone and sets g₁ = −g₀. "v2" is the TPU's v1 with its window
+backward written as gathers; the kernel's window pass already is that gather,
+so "v2" runs "v1". "v2_aff" computes the K affinity planes of each image once,
+before the steps, and reads them in every step ([B,K,H,W] float scratch);
+its masks and losses equal "v1"'s. ``refine_plain`` is the golden of every
+plan: it checks ``plan`` and computes the same function for each.
 """
 
 from __future__ import annotations
@@ -31,12 +41,15 @@ from weaklysuperviseddl_tpu_torch.losses.window import (
     window_offsets,
 )
 from weaklysuperviseddl_tpu_torch.ops.build import build
+from weaklysuperviseddl_tpu_torch.ops.window import spatial_table
 
 SOURCE = "refine.cu"
 MAX_CLASSES = 4      # the kernel's compile-time class counts: 2, 3, 4
 MAX_WINDOW = 7       # windows 3, 5 and 7
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+PLANS = ("v1", "v1sym", "v2", "v2_aff")
+_PLAN_CODES = {"v1": 0, "v1sym": 1, "v2": 0, "v2_aff": 2}  # csrc/refine.cu's Plan
 
 _lib = None
 
@@ -47,16 +60,28 @@ def _load():
         lib = ctypes.CDLL(str(build(SOURCE)))
         lib.wsdl_refine.argtypes = (
             [ctypes.c_void_p] * 4          # S, images, masks (int32), out (uint8)
-            + [ctypes.c_void_p] * 6        # X, M, V, G, partials, loss_acc (scratch)
+            + [ctypes.c_void_p] * 7        # X, M, V, G, partials, loss_acc, aff (scratch)
             + [ctypes.c_int] * 6           # B, H, W, C, window, num_steps
-            + [ctypes.c_int]               # double_softmax
+            + [ctypes.c_int] * 2           # plan, double_softmax
             + [ctypes.c_float] * 5         # inv2sc, normW, lambda_b, lr, threshold
-            + [ctypes.c_void_p]            # float spatial[MAX_WINDOW²] (host)
+            + [ctypes.c_void_p]            # float spatial[window²] (host)
             + [ctypes.c_void_p]            # stream
         )
         lib.wsdl_refine.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def resolve_plan(plan: str, C: int) -> str:
+    """The plan that runs for ``plan`` at C classes; raises ValueError on an
+    unknown plan and on "v1sym" with C != 2, as ``pallas_refine`` does."""
+    if plan == "auto":
+        return "v1sym" if C == 2 else "v1"
+    if plan not in PLANS:
+        raise ValueError(f"unknown refinement plan {plan!r}; expected 'auto' or one of {PLANS}")
+    if plan == "v1sym" and C != 2:
+        raise ValueError("plan='v1sym' requires C == 2")
+    return plan
 
 
 def _constants(H: int, W: int, C: int, window_size: int, loss: str,
@@ -79,11 +104,12 @@ def _kl_per_image(q: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
 
 def refine_plain(S, images, masks, lambda_boundary=0.1, threshold=0.5, lr=1e-2,
                  num_steps=20, sigma_color=0.1, sigma_space=5.0, window_size=5,
-                 loss="ncut"):
+                 loss="ncut", plan="auto"):
     """The plain PyTorch version: autograd through the window loss, Adam
     written out (the formula optax and the kernel use). Returns (uint8
-    [B,H,W], mean over images of Σ_steps loss)."""
+    [B,H,W], mean over images of Σ_steps loss), the same for every plan."""
     C = S.shape[-1]
+    resolve_plan(plan, C)
     S = S.float()
     images = images.float()
     x = torch.nn.functional.one_hot(masks.long(), C).float()
@@ -118,11 +144,12 @@ def refine_plain(S, images, masks, lambda_boundary=0.1, threshold=0.5, lr=1e-2,
 
 def refine_cuda(S, images, masks, lambda_boundary=0.1, threshold=0.5, lr=1e-2,
                 num_steps=20, sigma_color=0.1, sigma_space=5.0, window_size=5,
-                loss="ncut"):
+                loss="ncut", plan="auto"):
     """The kernel: S [B,H,W,C] float32, images [B,H,W,3] float32, masks
     [B,H,W] integer, all contiguous CUDA tensors on one device → (uint8
     [B,H,W], mean loss as a 0-dim tensor), launched on the current stream
     without synchronising. Raises on anything the kernel does not take."""
+    plan = resolve_plan(plan, S.shape[-1] if S.ndim == 4 else 0)
     for name, t in (("S", S), ("images", images), ("masks", masks)):
         if t.device.type != "cuda":
             raise ValueError(f"refine_cuda needs CUDA tensors, {name} is on {t.device}")
@@ -165,25 +192,27 @@ def refine_cuda(S, images, masks, lambda_boundary=0.1, threshold=0.5, lr=1e-2,
     g = torch.empty_like(x)
     tiles = ((H + 15) // 16) * ((W + 15) // 16)
     partials = torch.empty((B, tiles, 2), dtype=torch.float32, device=dev)
-    # the spatial term of every offset, rounded to float32 as the plain version's is
-    spatial = (ctypes.c_float * (MAX_WINDOW * MAX_WINDOW))()
-    for i, (dy, dx) in enumerate((dy, dx) for dy in range(-pad, pad + 1)
-                                 for dx in range(-pad, pad + 1)):
-        spatial[i] = 0.0 if sspace is None else (dy * dy + dx * dx) / (2.0 * sspace ** 2)
+    K = len(window_offsets(window_size))
+    aff = (torch.empty((B, K, H, W), dtype=torch.float32, device=dev) if plan == "v2_aff"
+           else None)
+    spatial = spatial_table(window_size, sspace)
     lib = _load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.wsdl_refine(
             S.data_ptr(), images.data_ptr(), masks32.data_ptr(), out.data_ptr(),
             x.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(), partials.data_ptr(),
-            loss_acc.data_ptr(), B, H, W, C, window_size, num_steps, int(double_softmax),
+            loss_acc.data_ptr(), None if aff is None else aff.data_ptr(), B, H, W, C,
+            window_size, num_steps, _PLAN_CODES[plan], int(double_softmax),
             inv2sc, normW, lambda_boundary, lr, threshold,
             ctypes.addressof(spatial), stream)
     if err != 0:
         raise RuntimeError(f"refine launch failed with cudaError {err}")
     refine_cuda.launches += 1
+    refine_cuda.plan_launches[plan] += 1
     return out, loss_acc.mean()
 
 
 refine_cuda.launches = 0  # batches refined by the kernel since the last reset
+refine_cuda.plan_launches = dict.fromkeys(PLANS, 0)  # the same, by the plan that ran
 

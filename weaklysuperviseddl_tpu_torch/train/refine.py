@@ -10,9 +10,11 @@ ncut criterion softmaxes its (already softmaxed) input again, and KL uses
 log(X_norm + 1e-8) summed over the image.
 
 On a CUDA tensor with ``use_pallas=True`` (the config's name for "the
-kernel") this launches the CUDA kernel (``ops/refine.py`` + ``csrc/refine.cu``);
-``use_pallas=False`` forces the plain version, as it forces XLA in the JAX
-package. The kernel takes any H×W, so there is no size fallback.
+kernel") this launches the CUDA kernel (``ops/refine.py`` + ``csrc/refine.cu``)
+with its default plan, as the JAX package calls ``pallas_refine``: "v1sym"
+for the binary masks of the cycle, "v1" otherwise. ``use_pallas=False``
+forces the plain version, as it forces XLA in the JAX package. The kernel
+takes any H×W, so there is no size fallback.
 """
 
 from __future__ import annotations
