@@ -29,19 +29,23 @@ Phases, one JSON line each:
                v2_aff: mask agreement >= 0.9999 and loss rtol 1e-4 at lr 1e-2
                and, with random S, at lr 0.1 (masks move); with the model's S at
                lr 0.1, mismatches only where S is within 0.05 of the threshold;
-               v2_aff equal to v1; two launches bit-identical. Every plan's time
-               (CUDA events) at [4,256,256] ncut 20 steps, [8,256,256] 10 steps
-               and [4,256,256] boundary 75 steps, beside the bound.
+               v2_aff equal to v1; two launches bit-identical. The time of v1,
+               v1sym and v2_aff (v2 runs v1's kernel) at [4,256,256] ncut 20
+               steps, [8,256,256] 10 steps and [4,256,256] boundary 75 steps,
+               beside the bound.
   6. window  - the window-loss kernels (sum and gradient, through the autograd
                Function) against the plain losses on the card: the fuzz shapes
                [2,11,13,2] w3, [2,16,24,3] w5, [2,9,32,2] w7 and the full width
                [8,256,256,2] w5 on synthetic pets, both losses, values rtol 1e-5,
                gradients rtol 1e-4 / atol 1e-7, two launches bit-identical;
                forward, backward and plain times beside the bounds. Then the
-               path: one image's refinement as 20 Adam steps under autograd
-               through fused_local_normalized_cut_loss, the kernels' counts reset
-               just before and read just after (20 each), masks equal to
-               refine_plain's and loss rtol 1e-4, timed beside K1.
+               path, where masks move: one image's refinement under autograd
+               through fused_local_normalized_cut_loss (20 Adam steps at lr 0.1)
+               and through fused_boundary_loss (the boundary protocol's 75 steps
+               at lr 1e-2), the kernels' counts reset just before and read just
+               after (95 each); each step's W against the plain loss (rtol
+               1e-5), masks against refine_plain's as in the refine phase, loss
+               rtol 1e-4; timed beside K1.
   7. weakly  - the training main path through run_weakly_supervised_alternating
                at full width: ResNet-50 CAM classifier (37 classes, 224², layer4
                dilated) → LayerCAM → pseudo-masks → DeepLabV3-ResNet50 os8
@@ -59,7 +63,9 @@ Phases, one JSON line each:
                error < 1e-3 of the largest output); the path's shape
                [32,50176]x[32,12544], d 5, C 2, against the plain version on 2
                of the 32 images (rtol 1e-4) and two launches bit-identical.
-               Times with CUDA events beside the bound.
+               Times with CUDA events beside the bound, and the host's part of
+               a call and events around calls traced by the profiler (where the
+               profiler's kernel time and the events' disagree).
   9. cam_fusion - the LayerCAM-fusion kernel against its plain version at the
                full-width classifier's layer3 and layer4 shapes (its own
                activations and gradients on synthetic pets) and at a ragged
@@ -72,7 +78,8 @@ Phases, one JSON line each:
                mask.use_crf (the reference's parameters: subsampled, stride 2, 5
                iterations, sigma 1/50/5, compat 2/10) and seg.loss_fn
                lovasz_softmax; every kernel's count reset just before and read
-               just after (the bilateral kernel must launch ceil(n/32)*6 times);
+               just after (the bilateral kernel must launch ceil(n/32)*6 times,
+               K1 all v1sym);
                then on 32 train images with the run's classifier: CRF masks from
                the kernel against the plain filter on the card (>= 0.999), the
                card against the CPU on 1 image (>= 0.999), and subsampled
@@ -84,13 +91,14 @@ Phases, one JSON line each:
                sigma_space 10, one sweep per round, CAM threshold 0.5); models,
                data and depth cuts as weakly with one alternation; the counts
                reset just before and read just after (K1 once per batch of 4,
-               all v1sym; K2); the fraction of mask pixels the sweep changed;
-               then one refinement batch of 1 image on the card against the CPU
-               with the same weights (>= 0.995).
+               all v1sym; K2); the fraction of mask pixels the sweep changed
+               (the uploaded masks against the store's after the run); then one
+               refinement batch of 1 image on the card against the CPU with the
+               same weights (>= 0.995).
 Then the script's seconds by phase, the card's name and power limit, the
-kernels line (each kernel's ``ms`` is its device time per call from a
-torch.profiler trace, ``call_ms`` the CUDA-event time of a whole call), and
-the last line
+kernels line (each kernel's ``ms`` is the CUDA-event time of one call,
+``back_to_back_ms`` the same over calls in a row, ``device_ms`` the summed
+kernel time per call from a torch.profiler trace), and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: no result is
 printed. Exits non-zero without a CUDA device.
 """
@@ -142,9 +150,9 @@ def cuda_ms(fn, runs: int = 25, warmup: int = 3) -> float:
 
 def device_ms(fn, runs: int = 10, warmup: int = 2):
     """Device time per call of what ``fn`` runs on the card, from a
-    torch.profiler CUDA trace: (total ms, {kernel name: ms}), or (None, {}) if
-    the trace holds no device time. Unlike cuda_ms it leaves out the host's
-    time between launches, which dominates a call of a kernel of tens of µs."""
+    torch.profiler CUDA trace: (summed kernel ms, {kernel name: ms}), or
+    (None, {}) if the trace holds no device time. Unlike cuda_ms it leaves out
+    the gaps between a call's launches and the host's time before the first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -166,12 +174,42 @@ def device_ms(fn, runs: int = 10, warmup: int = 2):
 
 
 def kernel_ms(fn, runs: int = 10, warmup: int = 2) -> dict:
-    """{"ms": device time per call (events time if the trace has none),
-    "call_ms": CUDA-event time per call, "ms_from": which of the two}."""
-    dev, _ = device_ms(fn, runs, warmup)
-    call = cuda_ms(fn, runs=runs, warmup=warmup)
-    return {"ms": call if dev is None else dev, "call_ms": call,
-            "ms_from": "cuda_events" if dev is None else "profiler"}
+    """{"ms": CUDA-event time of one call (cuda_ms), "back_to_back_ms": CUDA
+    events around ``runs`` calls in a row, per call (no idle card between
+    calls), "device_ms": the summed kernel time per call from a profiler
+    trace (None if the trace has none)}."""
+    import torch
+
+    ms = cuda_ms(fn, runs=runs, warmup=warmup)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return {"ms": ms, "back_to_back_ms": start.elapsed_time(end) / runs,
+            "device_ms": device_ms(fn, runs, warmup)[0]}
+
+
+def events_under_profiler_ms(fn, runs: int = 10, warmup: int = 2) -> float:
+    """CUDA events around ``runs`` calls in a row while torch.profiler traces
+    them, per call: set beside back_to_back_ms and device_ms, it tells a
+    kernel that runs faster under the trace from a trace that leaves time out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / runs
 
 
 def short_name(kernel: str) -> str:
@@ -467,22 +505,36 @@ def phase_serve():
     return launches, raw_dev
 
 
+def window_pairs(window: int) -> int:
+    """Pixel pairs per pixel of the window terms: inside the image the terms
+    (p, o) and (p + o, -o) share their affinity and their squared difference,
+    and each pair's a·d enters the gradient at p and, negated, at p + o. (The
+    reflect border, counted here as interior, is 3 % of the pixels at 256²,
+    window 5.)"""
+    return (window * window - 1) // 2
+
+
 def refine_work(B: int, H: int, W: int, C: int, window: int, steps: int, loss: str):
     """(bytes, fp32 operations) the refinement needs at the least, from its
     shapes. Bytes: S, the image and the int32 mask read once, the uint8 mask
-    written once. Operations, each exp/log/div/sqrt counted as one:
-      once per pixel: the K colour affinities (3 sub, 3 mul, 2 add, the
+    written once. Operations, each exp/log/div/sqrt counted as one, over the
+    window_pairs P and the classes the window term needs (one at C=2: t is a
+    softmax, t₁ = 1 − t₀, so d₁ = −d₀ and g₁ = −g₀):
+      once per pixel: the P colour affinities (3 sub, 3 mul, 2 add, the
         exponent's mul and sub, exp: 11 each; they depend on the image only)
         and S·log S (3 per class);
       per pixel and step: softmax(X) (5C-2) and, for ncut, softmax(q) (5C-2);
-        KL (5 per class); per offset and class d, a·d, a·d·d, the W sum and
-        the gradient's centre and mirror sums (6); the VJPs and the KL
-        gradient (13 per class, +4 per class for ncut); Adam (14 per class)."""
-    K = window * window - 1
+        KL (5 per class); per pair and class needed d, a·d, a·d·d into the W
+        sum (2) and a·d into the gradient at both ends (2): 6; the VJPs and
+        the KL gradient (13 per class, +4 per class for ncut); Adam (14 per
+        class)."""
+    P = window_pairs(window)
+    swept = 1 if C == 2 else C
     px = B * H * W
     softmaxes = (5 * C - 2) * (2 if loss == "ncut" else 1)
-    per_step = softmaxes + 5 * C + 6 * K * C + (13 + (4 if loss == "ncut" else 0)) * C + 14 * C
-    ops = px * (11 * K + 3 * C + steps * per_step)
+    per_step = (softmaxes + 5 * C + 6 * P * swept + (13 + (4 if loss == "ncut" else 0)) * C
+                + 14 * C)
+    ops = px * (11 * P + 3 * C + steps * per_step)
     nbytes = px * (4 * C + 4 * 3 + 4 + 1)
     return nbytes, ops
 
@@ -639,33 +691,40 @@ def phase_refine():
                                        "ncut"),
                "boundary_4x256_75_steps": ((S, x, masks), boundary_kw, (4, 256, 256), 75,
                                            "boundary")}
-    plan_ms, plan_call_ms, plan_kernels = {}, {}, {}
+    # "v2" runs v1's kernel (ops/refine.py), so its time is v1's and is not
+    # taken apart; ms by CUDA events around a call, the profiler's summed
+    # kernel time and its split by kernel beside it
+    timed_plans = [p for p in PLANS if p != "v2"]
+    plan_ms, plan_device_ms, plan_kernels = {}, {}, {}
     for cname, (inputs, kw, shape, steps, loss) in configs.items():
-        times, calls, kernels = {}, {}, {}
-        for plan in PLANS:
+        times, dev_times, kernels = {}, {}, {}
+        for plan in timed_plans:
             fn = lambda: refine_cuda(*inputs, plan=plan, **kw)
-            dev, by_kernel = device_ms(fn, runs=5)
-            calls[plan] = cuda_ms(fn, runs=10)
-            times[plan] = calls[plan] if dev is None else dev
+            times[plan] = cuda_ms(fn, runs=25)
+            dev_times[plan], by_kernel = device_ms(fn, runs=5)
             kernels[plan] = {}
             for k, ms in by_kernel.items():
                 kernels[plan][short_name(k)] = kernels[plan].get(short_name(k), 0.0) + ms
         bound_ms, bound_by, _ = refine_bound(shape, 2, 5, steps, loss)
-        plan_ms[cname] = {**times, "fastest": min(times, key=times.get), "bound_ms": bound_ms,
-                          "bound_by": bound_by}
-        plan_call_ms[cname] = calls
+        plan_ms[cname] = {**times, "fastest": min(times, key=times.get),
+                          "fastest_by_device_ms": min(dev_times, key=lambda p: dev_times[p] or 0),
+                          "bound_ms": bound_ms, "bound_by": bound_by}
+        plan_device_ms[cname] = dev_times
         plan_kernels[cname] = kernels
 
     shape = tuple(masks.shape)
     bound_ms, bound_by, ops = refine_bound(shape, 2, 5, 20, "ncut")
     by_steps = {n: cuda_ms(lambda: refine_cuda(S, x, masks, num_steps=n), runs=10)
                 for n in (0, 10)}
+    auto = kernel_ms(lambda: refine_cuda(S, x, masks), runs=10)  # "auto" = v1sym at C=2
     timing = {
-        "ms": plan_ms["ncut_4x256_20_steps"]["v1sym"],  # "auto" at C=2
+        "ms": plan_ms["ncut_4x256_20_steps"]["v1sym"],
+        "back_to_back_ms": auto["back_to_back_ms"], "device_ms": auto["device_ms"],
         "ms_v1": plan_ms["ncut_4x256_20_steps"]["v1"],
         "ms_v2_aff": plan_ms["ncut_4x256_20_steps"]["v2_aff"],
-        "call_ms": plan_call_ms["ncut_4x256_20_steps"]["v1sym"],
-        "call_ms_v2_aff": plan_call_ms["ncut_4x256_20_steps"]["v2_aff"],
+        "device_ms_v2_aff": plan_device_ms["ncut_4x256_20_steps"]["v2_aff"],
+        "back_to_back_ms_v2_aff": kernel_ms(lambda: refine_cuda(S, x, masks, plan="v2_aff"),
+                                            runs=10)["back_to_back_ms"],
         "plain_ms": cuda_ms(lambda: refine_plain(S, x, masks), runs=5, warmup=1),
         "bound_ms": bound_ms, "bound_by": bound_by, "gflop": ops / 1e9,
         "ms_at_0_and_10_steps": by_steps,
@@ -677,7 +736,8 @@ def phase_refine():
          small_min_changed_at_lr_0_2=min(c["changed"] for c in checks if c["lr"] > 0.1),
          small_loss_bit_identical_to_v1=v1_bits,
          path_cases=path, fg_frac_before=float(masks.float().mean()),
-         plan_ms=plan_ms, plan_call_ms=plan_call_ms, plan_kernel_ms=plan_kernels,
+         plan_ms=plan_ms, plan_v2="runs v1's kernel: its ms is v1's",
+         plan_device_ms=plan_device_ms, plan_kernel_ms=plan_kernels,
          launches_main_path={"v2_aff": aff_launches},
          kernels=["refine", "refine_v2_aff"], **timing)
     return timing, (S, x, masks), (S8, x8)
@@ -686,43 +746,53 @@ def phase_refine():
 def window_work(B: int, H: int, W: int, C: int, window: int, backward: bool):
     """(bytes, fp32 operations) the window sum, or its gradient, needs at the
     least, from its shapes. Bytes: probs and the image read once and,
-    backward, the gradient written once. Operations: the K colour affinities
-    once per pixel (11 each, as refine_work counts them) and per offset and
-    class 3 (d, a·d, a·d·d into the sum) or 4 (the centre and mirror terms of
-    the gradient, each a difference and a multiply-add)."""
-    K = window * window - 1
+    backward, the gradient written once. Operations over the window_pairs P
+    (every class: probs need not sum to 1): each pair's affinity (11, as
+    refine_work counts them) and per pair and class 3 (d, a·d, a·d·d into the
+    sum) or 4 (d, a·d, and a·d into the gradient at both ends); backward also
+    2 per pixel and class (the factor 2·g)."""
+    P = window_pairs(window)
     px = B * H * W
-    ops = px * (11 * K + (4 if backward else 3) * K * C)
+    ops = px * (11 * P + (4 if backward else 3) * P * C + (2 * C if backward else 0))
     nbytes = px * 4 * (C + 3 + (C if backward else 0))
     return nbytes, ops
 
 
-def autograd_refinement(S, images, masks, steps: int, lr: float, lambda_boundary=0.1,
-                        sigma_color=0.1, window=5):
-    """One image's ncut refinement written as a user of the window kernels
-    would write it: Adam on X under torch.autograd, the window term through
-    fused_local_normalized_cut_loss (one forward and one backward kernel per
-    step; it softmaxes q again, as the reference's criterion does). Returns
-    (uint8 mask, summed step loss)."""
+def autograd_refinement(S, images, masks, num_steps=20, lr=1e-2, loss="ncut",
+                        lambda_boundary=0.1, sigma_color=0.1, sigma_space=5.0, window_size=5):
+    """One image's refinement written as a user of the window kernels would
+    write it: Adam on X under torch.autograd, the window term through
+    fused_local_normalized_cut_loss (ncut: it softmaxes q again, as the
+    reference's criterion does) or fused_boundary_loss, one forward and one
+    backward kernel per step. Returns (uint8 mask, summed step loss, each
+    step's (q, W))."""
     import torch
 
-    from weaklysuperviseddl_tpu_torch.ops.window import fused_local_normalized_cut_loss
+    from weaklysuperviseddl_tpu_torch.ops.window import (
+        fused_boundary_loss,
+        fused_local_normalized_cut_loss,
+    )
 
     x = torch.nn.functional.one_hot(masks.long(), S.shape[-1]).float().requires_grad_(True)
     opt = torch.optim.Adam([x], lr=lr)
     s_log_s = torch.where(S > 0, S * torch.log(torch.where(S > 0, S, torch.ones_like(S))),
                           torch.zeros_like(S)).sum()
     total = torch.zeros((), device=S.device)
-    for _ in range(steps):
+    trace = []
+    for _ in range(num_steps):
         q = torch.softmax(x, dim=-1)
         kl = s_log_s - (S * torch.log(q + 1e-8)).sum()
-        w = fused_local_normalized_cut_loss(q, images, sigma_color, window)
-        loss = kl + lambda_boundary * kl.detach() / (w.detach() + 1e-6) * w
+        if loss == "ncut":
+            w = fused_local_normalized_cut_loss(q, images, sigma_color, window_size)
+        else:
+            w = fused_boundary_loss(q, images, sigma_color, sigma_space, window_size)
+        step_loss = kl + lambda_boundary * kl.detach() / (w.detach() + 1e-6) * w
         opt.zero_grad()
-        loss.backward()
+        step_loss.backward()
         opt.step()
-        total = total + loss.detach()
-    return (torch.softmax(x.detach(), dim=-1)[..., 1] > 0.5).to(torch.uint8), total
+        total = total + step_loss.detach()
+        trace.append((q.detach(), w.detach()))
+    return (torch.softmax(x.detach(), dim=-1)[..., 1] > 0.5).to(torch.uint8), total, trace
 
 
 def phase_window(path_batch, batch8):
@@ -807,52 +877,95 @@ def phase_window(path_batch, batch8):
     bwd = kernel_ms(lambda: window_sum_grad_cuda(t8, x8, 0.1, None, 5), runs=50, warmup=5)
     _, fwd_kernels = device_ms(lambda: window_sum_cuda(t8, x8, 0.1, None, 5), runs=20)
     timing = {
-        "fwd_ms": fwd["ms"], "fwd_call_ms": fwd["call_ms"], "ms_from": fwd["ms_from"],
-        "fwd_kernel_ms": {short_name(k): v for k, v in fwd_kernels.items()},
-        "bwd_ms": bwd["ms"], "bwd_call_ms": bwd["call_ms"],
+        "fwd": fwd, "fwd_kernel_device_ms": {short_name(k): v for k, v in fwd_kernels.items()},
+        "bwd": bwd,
         "fwd_plain_ms": cuda_ms(lambda: window_sum_plain(t8, x8, 0.1, None, 5), runs=10),
         "bwd_plain_ms": cuda_ms(lambda: window_sum_grad_plain(t8, x8, 0.1, None, 5), runs=10),
-        "boundary_fwd_ms": kernel_ms(lambda: window_sum_cuda(S8, x8, 0.1, 5.0, 5), runs=50,
-                                     warmup=5)["ms"],
-        "boundary_bwd_ms": kernel_ms(lambda: window_sum_grad_cuda(S8, x8, 0.1, 5.0, 5), runs=50,
-                                     warmup=5)["ms"],
+        "boundary_fwd": kernel_ms(lambda: window_sum_cuda(S8, x8, 0.1, 5.0, 5), runs=50,
+                                  warmup=5),
+        "boundary_bwd": kernel_ms(lambda: window_sum_grad_cuda(S8, x8, 0.1, 5.0, 5), runs=50,
+                                  warmup=5),
         "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by, "fwd_gflop": ops / 1e9,
         "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by, "bwd_gflop": ops_b / 1e9,
         "shape": [8, 256, 256, 2], "window": 5,
     }
 
-    # ---- the main path: counts from 0, one image's refinement as 20 Adam
-    # steps under autograd through the window kernels, counts read after ----
-    S, x, masks = (t[:1].contiguous() for t in path_batch)
+    # ---- the main path: counts from 0, one image's refinement under autograd
+    # through the window kernels where masks move, counts read after: ncut at
+    # lr 0.1 for 20 steps on random S (as the refine phase's case), and the
+    # boundary protocol (lr 1e-2, 75 steps, lambda 0.5, sigma_space 10) on S
+    # that says the pet (0.9 inside, 0.1 outside) with the mask shifted 8 px
+    # off it, as a CAM pseudo-mask sits off the object. At the ncut path's lr
+    # 1e-2 no pixel leaves its one-hot start in 20 steps; nor does it in the
+    # boundary protocol where every mask edge lies on a colour edge (W ≈ 0
+    # makes λ huge), so equal masks would show nothing there ----
+    _, x, masks = (t[:1].contiguous() for t in path_batch)
+    rng = np.random.default_rng(11)
+    S_rand = rng.uniform(0.1, 1, (1, 256, 256, 2)).astype(np.float32)
+    S_rand = torch.from_numpy(S_rand / S_rand.sum(-1, keepdims=True)).cuda()
+    p_pet = torch.where(masks == 1, 0.9, 0.1).float()
+    S_pet = torch.stack([1 - p_pet, p_pet], -1).contiguous()
+    path_cases = {
+        "ncut_lr_0.1_20_steps": (S_rand, masks, dict(num_steps=20, lr=0.1)),
+        "boundary_protocol_75_steps": (S_pet, torch.roll(masks, 8, dims=2).contiguous(),
+                                       dict(num_steps=75, lr=1e-2, loss="boundary",
+                                            lambda_boundary=0.5, sigma_space=10.0)),
+    }
     window_sum_cuda.launches = 0
     window_sum_grad_cuda.launches = 0
+    runs = {name: autograd_refinement(S_case, x, m0, **kw)
+            for name, (S_case, m0, kw) in path_cases.items()}
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got_m, got_l = autograd_refinement(S, x, masks, steps=20, lr=1e-2)
-    torch.cuda.synchronize()
-    autograd_ms = (time.perf_counter() - t0) * 1e3
     launches = {"window_fwd": window_sum_cuda.launches,
                 "window_bwd": window_sum_grad_cuda.launches}
-    check(launches == {"window_fwd": 20, "window_bwd": 20},
-          f"the autograd refinement launched the window kernels {launches} times, not 20 each")
-    want_m, want_l = refine_plain(S, x, masks)
-    check(torch.equal(got_m, want_m), "autograd refinement masks differ from refine_plain's")
-    check(loss_rel_err(got_l, want_l) <= 1e-4,
-          f"autograd refinement loss {float(got_l)} off refine_plain's {float(want_l)}")
-    again_ms = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        autograd_refinement(S, x, masks, steps=20, lr=1e-2)
-        torch.cuda.synchronize()
-        again_ms.append((time.perf_counter() - t0) * 1e3)
-    path = {"shape": [1, 256, 256, 2], "steps": 20, "lr": 1e-2,
-            "masks_equal_plain": True, "loss_rel_err": loss_rel_err(got_l, want_l),
-            "first_run_ms": autograd_ms, "ms": statistics.median(again_ms),
-            "k1_auto": kernel_ms(lambda: refine_cuda(S, x, masks), runs=20),
-            "k1_v1": kernel_ms(lambda: refine_cuda(S, x, masks, plan="v1"), runs=20)}
+    steps = sum(kw["num_steps"] for _, _, kw in path_cases.values())
+    check(launches == {"window_fwd": steps, "window_bwd": steps},
+          f"the autograd refinements launched the window kernels {launches} times, not {steps}")
+    path = {}
+    for name, (S_case, m0, kw) in path_cases.items():
+        got_m, got_l, trace = runs[name]
+        want_m, want_l = refine_plain(S_case, x, m0, **kw)
+        # each step's W from the kernel against the plain loss on the same q
+        # (rtol 1e-5; atol 1e-12, far below the ~1e-7 of a moving W: at step 0
+        # W underflows to 0 where every mask edge lies on a colour edge)
+        w_err = 0.0
+        for step, (q, w) in enumerate(trace):
+            if kw.get("loss", "ncut") == "ncut":
+                plain_w = float(local_normalized_cut_loss(q, x, 0.1, 5))
+            else:
+                plain_w = float(boundary_loss(q, x, 0.1, kw["sigma_space"], 5))
+            diff = abs(float(w) - plain_w)
+            check(diff <= 1e-5 * abs(plain_w) + 1e-12,
+                  f"autograd refinement {name}: step {step}'s W {float(w)} off plain {plain_w}")
+            w_err = max(w_err, diff / abs(plain_w) if plain_w else 0.0)
+        # as the refine phase's path cases: where S is within 0.05 of the
+        # threshold, Adam's last steps of about lr leave a pixel on the side
+        # float noise picks
+        near = (S_case[..., 1] - 0.5).abs() <= 0.05
+        agree = float((got_m == want_m).float().mean())
+        far = int(((got_m != want_m) & ~near).sum())
+        changed = float((got_m != m0).float().mean())
+        check(changed > 0.01, f"autograd refinement {name} moved {changed} of the mask")
+        check(agree >= 0.9999 and far == 0,
+              f"autograd refinement {name} masks differ from refine_plain's: agreement {agree}, "
+              f"{far} px with |S-0.5| > 0.05")
+        check(loss_rel_err(got_l, want_l) <= 1e-4,
+              f"autograd refinement {name} loss {float(got_l)} off refine_plain's "
+              f"{float(want_l)}")
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            autograd_refinement(S_case, x, m0, **kw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        path[name] = {"shape": [1, 256, 256, 2], **kw, "changed_frac": changed,
+                      "mask_agreement": agree, "mismatched_px": int((got_m != want_m).sum()),
+                      "loss_rel_err": loss_rel_err(got_l, want_l), "step_w_max_rel_err": w_err,
+                      "ms": statistics.median(ms),
+                      "k1_auto": kernel_ms(lambda: refine_cuda(S_case, x, m0, **kw), runs=10)}
     emit("window", cases=cases, value_rtol=1e-5, grad_rtol=1e-4, grad_atol=1e-7,
-         max_abs_err=err, autograd_refinement=path, launches_main_path=launches,
+         max_abs_err=err, autograd_refinements=path, launches_main_path=launches,
          kernels=["window_fwd", "window_bwd"], **timing)
     return {**timing, "launches": launches, "max_abs_err": err}
 
@@ -990,21 +1103,16 @@ def phase_weakly_boundary():
           and cfg.mask == dataclasses.replace(base.mask, cam_thresh=0.5),
           "weakly_boundary config cut more than depth")
 
-    # the fraction of mask pixels each refinement sweep changes, recorded around
-    # the pipeline's own sweep
-    changed = []
-    make_sweep = alternating.make_refine_sweep
+    # the masks the alternating loop uploads before its first round, kept to
+    # count the pixels the refinement changes (outside every timed phase; with
+    # one round and one sweep, nothing else writes the masks)
+    uploaded = []
+    upload = alternating.upload_store_resident
 
-    def recording_sweep(model, rcfg, seg_size=256):
-        sweep = make_sweep(model, rcfg, seg_size)
-
-        def run(dev_masks, dev_images, idx_table):
-            before = dev_masks.clone()
-            total = sweep(dev_masks, dev_images, idx_table)
-            changed.append(float((dev_masks != before).float().mean()))
-            return total
-
-        return run
+    def recording_upload(store, seg_size=256, device=None):
+        out = upload(store, seg_size, device)
+        uploaded.append(out[1].cpu().numpy())
+        return out
 
     sw = Stopwatch("cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -1013,7 +1121,7 @@ def phase_weakly_boundary():
     refine_cuda.launches = 0
     refine_cuda.plan_launches = dict.fromkeys(refine_cuda.plan_launches, 0)
     t0 = time.perf_counter()
-    with mock.patch.object(alternating, "make_refine_sweep", recording_sweep):
+    with mock.patch.object(alternating, "upload_store_resident", recording_upload):
         result = run_weakly_supervised_alternating(cfg, stopwatch=sw, log=lambda *_: None,
                                                    device="cuda")
     wall = time.perf_counter() - t0
@@ -1025,11 +1133,13 @@ def phase_weakly_boundary():
           f"refine launched {launches['refine']} times ({plans}) on the boundary path, "
           f"expected {want_refine}, all v1sym")
     check(launches["cc_label"] > 0, "the boundary path never launched the cc kernel")
-    check(len(changed) == 1, f"{len(changed)} refinement sweeps, expected 1")
     m = result.metrics
     scalars = {k: m[k] for k in ("iou", "acc", "final_loss", "alt_iou", "alt_acc")}
     check(all(math.isfinite(v) for v in scalars.values()), f"non-finite metrics {scalars}")
     images, masks, _ = result.mask_store.as_arrays()
+    check(len(uploaded) == 1 and uploaded[0].shape == masks.shape,
+          f"{len(uploaded)} uploads of the store, expected 1 of shape {masks.shape}")
+    changed = float((masks != uploaded[0]).mean())
 
     # ---- one refinement batch of 1 image, the card against the CPU, same weights ----
     model = result.seg_state.model.eval()
@@ -1050,7 +1160,7 @@ def phase_weakly_boundary():
          overrides=protocol, cuts=cuts, train_images=n_train, wall_s=wall, phases=phases,
          metrics=m, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
          launches_main_path=launches, refine_plans_main_path=plans,
-         refine_changed_frac=changed[0],
+         refine_changed_frac=changed,
          card_cpu_refine_agreement={"agreement": agree, "images": 1,
                                     "changed_frac_cpu": float((cpu_masks.numpy() != masks[:1])
                                                               .mean())},
@@ -1191,8 +1301,19 @@ def phase_crf():
     shape = [32, fq.shape[1], fk.shape[1], 5, 2]
     bound_ms, bound_by = roofline(*bilateral_work(*shape))
     norm_v = torch.ones_like(v[..., :1])
+    # the host's part of a call: from the wrapper's entry to the launch's return
+    host_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gaussian_filter_cuda(fq, fk, v)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     timing = {
         **kernel_ms(lambda: gaussian_filter_cuda(fq, fk, v), runs=10, warmup=2),
+        "host_call_ms": statistics.median(host_ms),
+        "back_to_back_ms_under_profiler": events_under_profiler_ms(
+            lambda: gaussian_filter_cuda(fq, fk, v)),
         "ms_C1": kernel_ms(lambda: gaussian_filter_cuda(fq, fk, norm_v), runs=10, warmup=2)["ms"],
         "plain_ms": cuda_ms(lambda: gaussian_filter_plain_cross(fq, fk, v), runs=2, warmup=1),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1277,15 +1398,11 @@ def phase_cam_fusion():
     check(layercam_err <= 1e-5, f"layercam pallas vs xla: {layercam_err}")
     check(tuple(cam_k.shape) == (32, 224, 224) and bool(torch.isfinite(cam_k).all()),
           "layercam CAMs are not finite [32,224,224]")
-    layer4 = by_shape["layer4"]
     emit("cam_fusion", cases=cases, by_shape=by_shape, layercam_max_abs_err=layercam_err,
          layercam_ms={f: cuda_ms(lambda: layercam(model, x, cls, output_size=224, fusion=f),
                                  runs=3, warmup=1) for f in ("pallas", "xla")},
          launches_main_path=launches, kernels=["cam_fusion"])
-    return {"launches": launches, "max_abs_err": max_err, "by_shape": by_shape,
-            "ms": layer4["ms"], "call_ms": layer4["call_ms"], "plain_ms": layer4["plain_ms"],
-            "bound_ms": layer4["bound_ms"],
-            "bound_by": layer4["bound_by"], "shape": layer4["shape"]}
+    return {"launches": launches, "max_abs_err": max_err, **by_shape["layer4"]}
 
 
 def phase_weakly_crf():
@@ -1341,12 +1458,14 @@ def phase_weakly_crf():
     # ---- the main path: every count from 0, the pipeline, counts read after ----
     for kernel in (gaussian_filter_cuda, cam_fusion_cuda, label_components_cuda, refine_cuda):
         kernel.launches = 0
+    refine_cuda.plan_launches = dict.fromkeys(refine_cuda.plan_launches, 0)
     t0 = time.perf_counter()
     result = run_weakly_supervised_alternating(cfg, stopwatch=sw, log=lambda *_: None,
                                                device="cuda")
     wall = time.perf_counter() - t0
     launches = {"bilateral": gaussian_filter_cuda.launches, "cam_fusion": cam_fusion_cuda.launches,
                 "cc_label": label_components_cuda.launches, "refine": refine_cuda.launches}
+    plans = dict(refine_cuda.plan_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     n_train = len(result.mask_store)
     want_k3 = math.ceil(n_train / d.batch_size) * (1 + m.crf_iters)
@@ -1355,6 +1474,7 @@ def phase_weakly_crf():
     check(launches["cc_label"] > 0 and launches["refine"] > 0,
           f"the CRF path did not launch cc_label and refine: {launches}")
     check(launches["cam_fusion"] == 0, "fusion='auto' launched the cam_fusion kernel")
+    check(plans["v1sym"] == launches["refine"], f"plan 'auto' ran {plans} at C=2, not v1sym")
     metrics = result.metrics
     scalars = {k: metrics[k] for k in ("iou", "acc", "final_loss", "alt_iou", "alt_acc")}
     check(all(math.isfinite(v) for v in scalars.values()), f"non-finite metrics {scalars}")
@@ -1410,7 +1530,7 @@ def phase_weakly_crf():
     emit("weakly_crf", entry="run_weakly_supervised_alternating",
          crf=kw, seg_loss=cfg.seg.loss_fn, cuts=cuts, train_images=n_train, wall_s=wall,
          phases=phases, metrics=metrics, peak_mem_gb=peak_gb, launches_main_path=launches,
-         expected_bilateral_launches=want_k3,
+         refine_plans_main_path=plans, expected_bilateral_launches=want_k3,
          masks_kernel_vs_plain_agreement=plain_agree, masks_card_vs_cpu_agreement=cpu_agree,
          cpu_crf_1_image_s=cpu_s,
          subsampled_vs_attention={"mean": float(per_image.mean()),
@@ -1456,6 +1576,10 @@ def main() -> int:
         paths["weakly_boundary"] = boundary_launches.get(name, 0)
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
+    def timed_fields(t):
+        return {k: t[k] for k in ("ms", "back_to_back_ms", "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by")}
+
     # cc: on the masks the serving path gave it, the served argmax [64,256,256]
     shape = tuple(served_masks.shape)
     kernel_line = {"kernels": [{
@@ -1477,14 +1601,11 @@ def main() -> int:
         "source": "weaklysuperviseddl_tpu_torch/csrc/refine.cu",
         "replaces": "weaklysuperviseddl_tpu/ops/pallas_refine.py:45",
         **by_path("refine", weakly=weakly_launches["refine"]),
-        "plan_auto_ran": "v1sym",  # C=2; every path launch checked to be v1sym
+        # C=2 on every path; each path phase checks its launches were all v1sym
+        "plan_auto_ran": "v1sym",
         "max_abs_err": refine_timing["max_abs_err"],  # of the loss; masks equal or >= 0.9999
-        "ms": refine_timing["ms"],  # v1sym
+        **timed_fields(refine_timing),  # plan "auto" (v1sym)
         "ms_v1": refine_timing["ms_v1"],
-        "call_ms": refine_timing["call_ms"],
-        "plain_ms": refine_timing["plain_ms"],
-        "bound_ms": refine_timing["bound_ms"],
-        "bound_by": refine_timing["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the refinement
         "shape": refine_timing["shape"],
     }, {
@@ -1497,7 +1618,8 @@ def main() -> int:
         "launches_by_path": {"refine_plans": refine_timing["v2_aff_launches"]},
         "max_abs_err": refine_timing["max_abs_err"],  # of the loss, every plan against plain
         "ms": refine_timing["ms_v2_aff"],
-        "call_ms": refine_timing["call_ms_v2_aff"],
+        "back_to_back_ms": refine_timing["back_to_back_ms_v2_aff"],
+        "device_ms": refine_timing["device_ms_v2_aff"],
         "plain_ms": refine_timing["plain_ms"],
         "bound_ms": refine_timing["bound_ms"],  # the function is K1's
         "bound_by": refine_timing["bound_by"],
@@ -1508,12 +1630,11 @@ def main() -> int:
         "route": "cuda",
         "source": "weaklysuperviseddl_tpu_torch/csrc/window.cu",
         "replaces": "weaklysuperviseddl_tpu/ops/pallas_window.py:61",
-        # the window phase's autograd refinement (20 Adam steps, one image)
+        # the window phase's autograd refinements (20 + 75 Adam steps, one image)
         "launches": window["launches"]["window_fwd"],
         "launches_by_path": {"window": window["launches"]["window_fwd"]},
         "max_abs_err": window["max_abs_err"]["value"],  # of the losses, against plain
-        "ms": window["fwd_ms"],
-        "call_ms": window["fwd_call_ms"],
+        **window["fwd"],
         "plain_ms": window["fwd_plain_ms"],
         "bound_ms": window["fwd_bound_ms"],
         "bound_by": window["fwd_bound_by"],
@@ -1527,8 +1648,7 @@ def main() -> int:
         "launches": window["launches"]["window_bwd"],
         "launches_by_path": {"window": window["launches"]["window_bwd"]},
         "max_abs_err": window["max_abs_err"]["grad"],  # of the losses' gradients
-        "ms": window["bwd_ms"],
-        "call_ms": window["bwd_call_ms"],
+        **window["bwd"],
         "plain_ms": window["bwd_plain_ms"],
         "bound_ms": window["bwd_bound_ms"],
         "bound_by": window["bwd_bound_by"],
@@ -1541,11 +1661,7 @@ def main() -> int:
         "replaces": "weaklysuperviseddl_tpu/ops/pallas_bilateral.py:147",
         **by_path("bilateral"),
         "max_abs_err": crf_timing["max_abs_err"],  # at the path's shape, against plain
-        "ms": crf_timing["ms"],
-        "call_ms": crf_timing["call_ms"],
-        "plain_ms": crf_timing["plain_ms"],
-        "bound_ms": crf_timing["bound_ms"],
-        "bound_by": crf_timing["bound_by"],
+        **timed_fields(crf_timing),
         "library_ms": None,  # no single PyTorch call computes the Gaussian-kernel filter
         "shape": crf_timing["shape"],  # [B, Nq, Nk, d, C]
     }, {
@@ -1555,11 +1671,7 @@ def main() -> int:
         "replaces": "weaklysuperviseddl_tpu/ops/pallas_cam.py:28",
         **by_path("cam_fusion", cam_fusion=fusion["launches"]),
         "max_abs_err": fusion["max_abs_err"],
-        "ms": fusion["ms"],
-        "call_ms": fusion["call_ms"],
-        "plain_ms": fusion["plain_ms"],
-        "bound_ms": fusion["bound_ms"],
-        "bound_by": fusion["bound_by"],
+        **timed_fields(fusion),
         "library_ms": None,  # no single PyTorch call computes the fusion
         "shape": fusion["shape"],  # layer4; layer3 in the cam_fusion line
     }]}

@@ -53,10 +53,11 @@
 //               and the sums run in the same order, so masks and losses equal
 //               PLAN_V1's.
 //
-// Bound. The function needs, per pixel and step, about 24 offsets x C x 6 fp32
-// operations plus the softmaxes, KL and Adam, and its bytes are only S, the
-// image, the mask and the output: operations bind it (chip_smoke.py's
-// refine_work counts them). What the design does about it: the state stays in
+// Bound. The function needs, per pixel and step, 6 fp32 operations for each
+// of the 12 pixel pairs of a 5x5 window ((p, o) and (p + o, -o) are one pair
+// inside the image) and each class swept (one at C=2), plus the softmaxes, KL
+// and Adam, and its bytes are only S, the image, the mask and the output:
+// operations bind it (chip_smoke.py's refine_work counts them). What the design does about it: the state stays in
 // L2 (about 27 MB of traffic a step at [4,256,256], C=2), the 2*num_steps+2
 // launches need no host round trip, PLAN_V1SYM halves pass A's sweep, and
 // PLAN_V2AFF trades the recomputed affinities for L2 reads of stored planes.
@@ -149,8 +150,24 @@ __global__ void refine_affinity(const float* __restrict__ img, float* __restrict
   }
 }
 
+// Affinities read from one image's planes (refine_affinity's), for tile pixel
+// u = (y, x): aff_{o_k}(r) is plane k at r.
+struct PlaneAffinity {
+  const float* aff;  // [K][H][W]
+  long hw;
+  int W, y, x;
+  __device__ __forceinline__ float centre(int k, float, int, int) const {
+    return aff[k * hw + static_cast<long>(y) * W + x];
+  }
+  __device__ __forceinline__ float neighbour(int k, float, int ry, int rx) const {
+    return aff[k * hw + static_cast<long>(ry) * W + rx];
+  }
+};
+
 // Pass A. SYM: sweep class 0 alone (C == 2). PLANES: read the affinities from
 // `aff` (refine_affinity's planes) instead of computing them from the image.
+// One pixel's window terms come from window_common.cuh::window_terms, as in
+// window.cu's kernels.
 template <int C, bool SYM, bool PLANES>
 __global__ void __launch_bounds__(THREADS)
 refine_window(const float* __restrict__ X, const float* __restrict__ S,
@@ -197,8 +214,7 @@ refine_window(const float* __restrict__ X, const float* __restrict__ S,
   float kl = 0.f, wsum = 0.f;
   if (y < H && x < W) {
     const long pix = base + static_cast<long>(y) * W + x;
-    const int uy = y - oy, ux = x - ox;
-    float xv[C], q[C], tu[NC], gc[NC], gn[NC];
+    float xv[C], q[C], gc[NC], gn[NC];
 #pragma unroll
     for (int c = 0; c < C; ++c) xv[c] = X[pix * C + c];
     softmax<C>(xv, q);
@@ -209,62 +225,17 @@ refine_window(const float* __restrict__ X, const float* __restrict__ S,
       kl += plogp - s * logf(q[c] + 1e-8f);
     }
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      tu[c] = s_t[c][uy][ux];
-      gc[c] = 0.f;
-      gn[c] = 0.f;
-    }
-    float iu[3] = {0.f, 0.f, 0.f};
-    if constexpr (!PLANES) {
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) iu[ch] = s_img[ch][uy][ux];
-    }
-    int k = 0;  // offset index of (dy, dx), the centre left out
-    for (int dy = -pad; dy <= pad; ++dy) {
-      int rows[3];
-      const int nr = wsdl::preimages(y, dy, H, rows);
-      for (int dx = -pad; dx <= pad; ++dx) {
-        if (dy == 0 && dx == 0) continue;
-        const float sp = p.spatial[(dy + MAX_PAD) * MAX_WIN + dx + MAX_PAD];
-        const float* plane = nullptr;
-        if constexpr (PLANES) plane = aff + (static_cast<long>(b) * p.K + k) * hw;
-        ++k;
-        // centre role: r = u, neighbour reflect(u + o)
-        {
-          const int ny = wsdl::reflect(y + dy, H) - oy, nx = wsdl::reflect(x + dx, W) - ox;
-          float a;
-          if constexpr (PLANES) {
-            a = plane[static_cast<long>(y) * W + x];
-          } else {
-            a = wsdl::affinity(iu[0] - s_img[0][ny][nx], iu[1] - s_img[1][ny][nx],
-                               iu[2] - s_img[2][ny][nx], p.inv2sc, sp);
-          }
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            const float d = tu[c] - s_t[c][ny][nx];
-            const float ad = a * d;
-            wsum += ad * d;
-            gc[c] += ad;
-          }
-        }
-        // neighbour role: every r whose offset-o neighbour is u
-        int cols[3];
-        const int nc = wsdl::preimages(x, dx, W, cols);
-        for (int i = 0; i < nr; ++i) {
-          for (int j = 0; j < nc; ++j) {
-            const int ry = rows[i] - oy, rx = cols[j] - ox;
-            float a;
-            if constexpr (PLANES) {
-              a = plane[static_cast<long>(rows[i]) * W + cols[j]];
-            } else {
-              a = wsdl::affinity(s_img[0][ry][rx] - iu[0], s_img[1][ry][rx] - iu[1],
-                                 s_img[2][ry][rx] - iu[2], p.inv2sc, sp);
-            }
-#pragma unroll
-            for (int c = 0; c < NC; ++c) gn[c] += a * (s_t[c][ry][rx] - tu[c]);
-          }
-        }
-      }
+    for (int c = 0; c < NC; ++c) gc[c] = gn[c] = 0.f;
+    if constexpr (PLANES) {
+      const PlaneAffinity planes{aff + static_cast<long>(b) * p.K * hw, hw, W, y, x};
+      wsdl::window_terms<NC, true>(s_t, NC, y, x, H, W, pad, oy, ox, p.spatial, planes, wsum, gc,
+                                   gn);
+    } else {
+      const int uy = y - oy, ux = x - ox;
+      const wsdl::TileAffinity recompute{s_img, oy, ox, s_img[0][uy][ux], s_img[1][uy][ux],
+                                         s_img[2][uy][ux], p.inv2sc};
+      wsdl::window_terms<NC, true>(s_t, NC, y, x, H, W, pad, oy, ox, p.spatial, recompute, wsum,
+                                   gc, gn);
     }
     if constexpr (SYM) {
       const float g0 = 2.f * (gc[0] - gn[0]);

@@ -21,18 +21,20 @@
 // tile pixel. The forward writes one partial sum per tile; a second launch of
 // one block adds the partials in a fixed order, so there are no float atomics
 // and two launches give the same bits. The backward is the gather form of the
-// JAX kernel's slice-accumulates and reflect fold (window_common.cuh::
-// preimages): one write per pixel and class. More than CHUNK classes are swept
-// in chunks, the affinities recomputed for each chunk.
+// JAX kernel's slice-accumulates and reflect fold: one write per pixel and
+// class. Both kernels take one pixel's terms from window_common.cuh::
+// window_terms, as refine.cu's window pass does. More than CHUNK classes are
+// swept in chunks, the affinities recomputed for each chunk.
 //
-// Bound. Per pixel the function needs the K affinities (11 operations each)
-// and per offset and class 3 (forward) or about 4 (backward) operations; its
-// bytes are S and I read once and, backward, the gradient written once. At
-// [8,256,256,2], window 5, both bounds are 3-5 us (chip_smoke.py's window_work).
+// Bound. Inside the image the terms (p, o) and (p + o, -o) are one pair, so
+// the function needs K/2 affinities per pixel (11 operations each) and per
+// pair and class 3 (forward) or 4 (backward) operations; its bytes are S and I
+// read once and, backward, the gradient written once. At [8,256,256,2],
+// window 5, bytes bind both: 3.1 and 4.4 us (chip_smoke.py's window_work).
 // What the design does about it: every byte is read once from device memory
 // into shared memory, and the affinities are recomputed in registers instead
-// of stored; the backward computes both roles' affinities, about 2K expf per
-// pixel.
+// of stored; each pixel computes its own terms, so the forward computes every
+// pair's affinity twice and the backward four times (about 2K expf per pixel).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and loaded with ctypes (ops/window.py). The entry points return the first
@@ -100,6 +102,13 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ probs,
   }
 }
 
+// The affinities of the block's tile pixel, recomputed from s_img.
+__device__ __forceinline__ wsdl::TileAffinity tile_affinity(const float (*s_img)[HALO][HALO],
+                                                            const Tile& t, const Params& p) {
+  const int uy = t.y - t.oy, ux = t.x - t.ox;
+  return {s_img, t.oy, t.ox, s_img[0][uy][ux], s_img[1][uy][ux], s_img[2][uy][ux], p.inv2sc};
+}
+
 __global__ void __launch_bounds__(THREADS)
 window_fwd(const float* __restrict__ probs, const float* __restrict__ img,
            float* __restrict__ partials, const Params p) {
@@ -108,7 +117,6 @@ window_fwd(const float* __restrict__ probs, const float* __restrict__ img,
   __shared__ float s_red[THREADS / 32];
   const Tile t = load_tile(img, s_img, p);
   const bool inside = t.y < p.H && t.x < p.W;
-  const int uy = t.y - t.oy, ux = t.x - t.ox, pad = p.pad;
   float wsum = 0.f;
   for (int c0 = 0; c0 < p.C; c0 += CHUNK) {
     const int nc = min(CHUNK, p.C - c0);
@@ -116,25 +124,8 @@ window_fwd(const float* __restrict__ probs, const float* __restrict__ img,
     load_chunk(probs, s_p, t, c0, nc, p);
     __syncthreads();
     if (!inside) continue;
-    for (int dy = -pad; dy <= pad; ++dy) {
-      const int ny = wsdl::reflect(t.y + dy, p.H) - t.oy;
-      for (int dx = -pad; dx <= pad; ++dx) {
-        if (dy == 0 && dx == 0) continue;
-        const int nx = wsdl::reflect(t.x + dx, p.W) - t.ox;
-        const float a = wsdl::affinity(s_img[0][uy][ux] - s_img[0][ny][nx],
-                                       s_img[1][uy][ux] - s_img[1][ny][nx],
-                                       s_img[2][uy][ux] - s_img[2][ny][nx], p.inv2sc,
-                                       p.spatial[(dy + MAX_PAD) * MAX_WIN + dx + MAX_PAD]);
-#pragma unroll
-        for (int c = 0; c < CHUNK; ++c) {
-          if (c < nc) {
-            const float d = s_p[c][uy][ux] - s_p[c][ny][nx];
-            const float ad = a * d;
-            wsum += ad * d;
-          }
-        }
-      }
-    }
+    wsdl::window_terms<CHUNK, false>(s_p, nc, t.y, t.x, p.H, p.W, p.pad, t.oy, t.ox, p.spatial,
+                                     tile_affinity(s_img, t, p), wsum, nullptr, nullptr);
   }
   const float tile_sum = wsdl::block_sum(wsum, s_red);
   if (threadIdx.x == 0) partials[static_cast<long>(t.b) * p.tiles + t.tile] = tile_sum;
@@ -159,7 +150,6 @@ window_bwd(const float* __restrict__ probs, const float* __restrict__ img,
   __shared__ float s_p[CHUNK][HALO][HALO];
   const Tile t = load_tile(img, s_img, p);
   const bool inside = t.y < p.H && t.x < p.W;
-  const int y = t.y, x = t.x, uy = y - t.oy, ux = x - t.ox, pad = p.pad;
   const float g = inside ? gscale[0] : 0.f;
   for (int c0 = 0; c0 < p.C; c0 += CHUNK) {
     const int nc = min(CHUNK, p.C - c0);
@@ -167,45 +157,12 @@ window_bwd(const float* __restrict__ probs, const float* __restrict__ img,
     load_chunk(probs, s_p, t, c0, nc, p);
     __syncthreads();
     if (!inside) continue;
-    const float iu0 = s_img[0][uy][ux], iu1 = s_img[1][uy][ux], iu2 = s_img[2][uy][ux];
-    float tu[CHUNK], gc[CHUNK], gn[CHUNK];
+    float wsum = 0.f, gc[CHUNK], gn[CHUNK];  // wsum unused: the compiler drops it
 #pragma unroll
-    for (int c = 0; c < CHUNK; ++c) {
-      tu[c] = c < nc ? s_p[c][uy][ux] : 0.f;
-      gc[c] = 0.f;
-      gn[c] = 0.f;
-    }
-    for (int dy = -pad; dy <= pad; ++dy) {
-      int rows[3];
-      const int nr = wsdl::preimages(y, dy, p.H, rows);
-      for (int dx = -pad; dx <= pad; ++dx) {
-        if (dy == 0 && dx == 0) continue;
-        const float sp = p.spatial[(dy + MAX_PAD) * MAX_WIN + dx + MAX_PAD];
-        // centre role: r = u, neighbour reflect(u + o)
-        {
-          const int ny = wsdl::reflect(y + dy, p.H) - t.oy, nx = wsdl::reflect(x + dx, p.W) - t.ox;
-          const float a = wsdl::affinity(iu0 - s_img[0][ny][nx], iu1 - s_img[1][ny][nx],
-                                         iu2 - s_img[2][ny][nx], p.inv2sc, sp);
-#pragma unroll
-          for (int c = 0; c < CHUNK; ++c)
-            if (c < nc) gc[c] += a * (tu[c] - s_p[c][ny][nx]);
-        }
-        // neighbour role: every r whose offset-o neighbour is u
-        int cols[3];
-        const int ncol = wsdl::preimages(x, dx, p.W, cols);
-        for (int i = 0; i < nr; ++i) {
-          for (int j = 0; j < ncol; ++j) {
-            const int ry = rows[i] - t.oy, rx = cols[j] - t.ox;
-            const float a = wsdl::affinity(s_img[0][ry][rx] - iu0, s_img[1][ry][rx] - iu1,
-                                           s_img[2][ry][rx] - iu2, p.inv2sc, sp);
-#pragma unroll
-            for (int c = 0; c < CHUNK; ++c)
-              if (c < nc) gn[c] += a * (s_p[c][ry][rx] - tu[c]);
-          }
-        }
-      }
-    }
-    const long pix = t.base + static_cast<long>(y) * p.W + x;
+    for (int c = 0; c < CHUNK; ++c) gc[c] = gn[c] = 0.f;
+    wsdl::window_terms<CHUNK, true>(s_p, nc, t.y, t.x, p.H, p.W, p.pad, t.oy, t.ox, p.spatial,
+                                    tile_affinity(s_img, t, p), wsum, gc, gn);
+    const long pix = t.base + static_cast<long>(t.y) * p.W + t.x;
 #pragma unroll
     for (int c = 0; c < CHUNK; ++c)
       if (c < nc) grad[pix * p.C + c0 + c] = 2.f * (gc[c] - gn[c]) * g;

@@ -1,6 +1,7 @@
 // Pieces shared by the window-affinity kernels (window.cu) and the refinement
 // kernel (refine.cu): the tile geometry, reflect indexing and its preimages,
-// the colour affinity of one pixel pair, and a fixed-order block sum.
+// the colour affinity of one pixel pair, one pixel's window sum and gradient
+// (window_terms), and a fixed-order block sum.
 //
 // The window term of pixel r and offset o pairs r with its neighbour
 // n = reflect(r + o) (jnp.pad(mode="reflect"): the edge is not repeated):
@@ -46,6 +47,85 @@ __device__ __forceinline__ float affinity(float d0, float d1, float d2, float in
                                           float spatial) {
   const float cd = __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2));
   return expf(__fsub_rn(-__fmul_rn(cd, inv2sc), spatial));
+}
+
+// Affinities recomputed from the image over a tile and its halo in shared
+// memory (s_img[ch][sy][sx], shared coordinates = image coordinates - origin),
+// for tile pixel u whose colour is iu.
+struct TileAffinity {
+  const float (*s_img)[HALO][HALO];
+  int oy, ox;
+  float iu0, iu1, iu2, inv2sc;
+  // aff_o(u), o the k-th offset, its neighbour at image (ny, nx)
+  __device__ __forceinline__ float centre(int, float sp, int ny, int nx) const {
+    const int sy = ny - oy, sx = nx - ox;
+    return affinity(iu0 - s_img[0][sy][sx], iu1 - s_img[1][sy][sx], iu2 - s_img[2][sy][sx],
+                    inv2sc, sp);
+  }
+  // aff_o(r) of a preimage r at image (ry, rx), whose offset-o neighbour is u
+  __device__ __forceinline__ float neighbour(int, float sp, int ry, int rx) const {
+    const int sy = ry - oy, sx = rx - ox;
+    return affinity(s_img[0][sy][sx] - iu0, s_img[1][sy][sx] - iu1, s_img[2][sy][sx] - iu2,
+                    inv2sc, sp);
+  }
+};
+
+// The window terms of tile pixel u = (y, x), for the classes c < nc (nc <=
+// NMAX) of tp, t over the tile and its halo in shared memory (shared
+// coordinates = image coordinates - (oy, ox)):
+//   wsum  += sum_o sum_c aff_o(u) d_o,c(u)^2,   d_o,c(r) = t_c(r) - t_c(reflect(r + o))
+//   gc[c] += sum_o aff_o(u) d_o,c(u)                                  (GRAD)
+//   gn[c] += sum_o sum_{r: reflect(r+o)=u} aff_o(r) d_o,c(r)           (GRAD)
+// so d wsum / d t_c(u) = 2 (gc[c] - gn[c]): the gather form of the transpose
+// of the reflect fold, one write per pixel, no scatters. Offsets run row-major
+// without the centre (k counts them); `spatial` is laid out for MAX_WIN. aff
+// gives the affinities (TileAffinity, or stored planes): every kernel of the
+// window family sums in this one order.
+template <int NMAX, bool GRAD, class Aff>
+__device__ __forceinline__ void window_terms(const float (*tp)[HALO][HALO], int nc, int y, int x,
+                                             int H, int W, int pad, int oy, int ox,
+                                             const float* spatial, const Aff& aff, float& wsum,
+                                             float* gc, float* gn) {
+  float tu[NMAX];
+#pragma unroll
+  for (int c = 0; c < NMAX; ++c) tu[c] = c < nc ? tp[c][y - oy][x - ox] : 0.f;
+  int k = 0;
+  for (int dy = -pad; dy <= pad; ++dy) {
+    const int ny = reflect(y + dy, H);
+    int rows[3];
+    int nr = 0;
+    if constexpr (GRAD) nr = preimages(y, dy, H, rows);
+    for (int dx = -pad; dx <= pad; ++dx) {
+      if (dy == 0 && dx == 0) continue;
+      const float sp = spatial[(dy + MAX_PAD) * MAX_WIN + dx + MAX_PAD];
+      const int nx = reflect(x + dx, W);
+      // centre role: r = u, neighbour reflect(u + o)
+      const float a = aff.centre(k, sp, ny, nx);
+#pragma unroll
+      for (int c = 0; c < NMAX; ++c) {
+        if (c < nc) {
+          const float d = tu[c] - tp[c][ny - oy][nx - ox];
+          const float ad = a * d;
+          wsum += ad * d;
+          if constexpr (GRAD) gc[c] += ad;
+        }
+      }
+      // neighbour role: every r whose offset-o neighbour is u
+      if constexpr (GRAD) {
+        int cols[3];
+        const int ncol = preimages(x, dx, W, cols);
+        for (int i = 0; i < nr; ++i) {
+          for (int j = 0; j < ncol; ++j) {
+            const float ar = aff.neighbour(k, sp, rows[i], cols[j]);
+#pragma unroll
+            for (int c = 0; c < NMAX; ++c)
+              if (c < nc) gn[c] += ar * (tp[c][rows[i] - oy][cols[j] - ox] - tu[c]);
+          }
+        }
+      }
+      ++k;
+    }
+  }
 }
 
 // The caller's spatial terms, window^2 floats row-major on the host, into
