@@ -131,6 +131,73 @@ def test_refine_plans_equal_plain_and_v1(cuda, shape, C, loss):
         refine_cuda(*_refine_case(3, 1, 16, 16, 3, cuda), plan="v1sym")
 
 
+def _edge_pixels_by_tile(B, H, W, window, tile):
+    """int32 [B, tiles_y, tiles_x]: how many pixels of each tile lie within
+    window//2 of an image edge, where the reflect padding gives a pixel more
+    than one preimage per offset and the gradient is not 4·Σ aff·d."""
+    pad = window // 2
+    ys, xs = torch.arange(H)[:, None], torch.arange(W)[None, :]
+    near = torch.minimum(torch.minimum(ys, H - 1 - ys), torch.minimum(xs, W - 1 - xs)) <= pad
+    ty, tx = -(-H // tile), -(-W // tile)
+    padded = torch.zeros((ty * tile, tx * tile), dtype=torch.int32)
+    padded[:H, :W] = near.int()
+    counts = padded.reshape(ty, tile, tx, tile).sum(dim=(1, 3), dtype=torch.int32)
+    return counts.expand(B, ty, tx).contiguous()
+
+
+@pytest.mark.parametrize("lr", [1e-2, 0.2])
+@pytest.mark.parametrize("C", [2, 3])
+@pytest.mark.parametrize("loss", ["ncut", "boundary"])
+@pytest.mark.parametrize("shape", [(2, 64, 80), (1, 96, 100)])
+def test_refine_interior_tiles_every_plan(cuda, shape, loss, C, lr):
+    """Shapes with tiles clear of the edges, where the window pass takes
+    4·Σ aff·d, beside tiles with pixels near the edge, where it takes the
+    gather over the reflect's preimages: every plan's masks equal plain's and
+    its loss is within 1e-4; v2 and v2_aff give v1's bits; two launches give
+    the same bits."""
+    from weaklysuperviseddl_tpu_torch.ops.refine import PLANS, TILE, refine_cuda, refine_plain
+
+    assert bool((_edge_pixels_by_tile(*shape, 5, TILE) == 0).any())
+    S, images, masks = _refine_case(4, *shape, C, cuda)
+    kw = dict(num_steps=8, lr=lr, loss=loss)
+    want_m, want_l = refine_plain(S, images, masks, **kw)
+    v1_m, v1_l = refine_cuda(S, images, masks, plan="v1", **kw)
+    for plan in PLANS:
+        if plan == "v1sym" and C != 2:
+            continue
+        got_m, got_l = refine_cuda(S, images, masks, plan=plan, **kw)
+        again_m, again_l = refine_cuda(S, images, masks, plan=plan, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got_m, want_m), plan
+        np.testing.assert_allclose(float(got_l), float(want_l), rtol=1e-4)
+        assert torch.equal(again_m, got_m) and float(again_l) == float(got_l), plan
+        if plan in ("v2", "v2_aff"):
+            assert torch.equal(got_m, v1_m) and float(got_l) == float(v1_l), plan
+    if lr > 0.1:
+        assert (v1_m != (masks == 1)).float().mean().item() > 0.05
+
+
+@pytest.mark.parametrize("window", [3, 5, 7])
+@pytest.mark.parametrize("shape", [(2, 64, 80), (1, 96, 100), (1, 20, 24)])
+def test_refine_edge_phase_takes_the_pixels_near_an_edge(cuda, shape, window):
+    """The window pass's own count of the pixels its edge phase took, per
+    tile, is the count of pixels within window//2 of an edge, for every plan:
+    no such pixel takes 4·Σ aff·d, and every tile clear of the edges skips
+    the edge phase."""
+    from weaklysuperviseddl_tpu_torch.ops.refine import TILE, refine_cuda
+
+    want = _edge_pixels_by_tile(*shape, window, TILE).to(cuda)
+    S, images, masks = _refine_case(5, *shape, 2, cuda)
+    for plan in ("v1", "v1sym", "v2_aff"):
+        got = torch.full_like(want, -1)
+        refine_cuda(S, images, masks, num_steps=2, window_size=window, plan=plan,
+                    edge_pixels=got)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), plan
+    with pytest.raises(ValueError, match="edge_pixels"):
+        refine_cuda(S, images, masks, edge_pixels=want[:, :1])
+
+
 def test_refine_wrapper_routes_and_checks(cuda):
     from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
     from weaklysuperviseddl_tpu_torch.train.refine import refine_from_soft_predictions
@@ -252,6 +319,45 @@ def test_bilateral_kernel_equals_plain(cuda, B, Nq, Nk, d, C):
     assert got.shape == (B, Nq, C)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("C", [1, 2])
+def test_bilateral_packed_variant_ragged(cuda, C):
+    """The CRF's variant (d 5, C 1 or 2: keys packed and padded to the key
+    tile, 8 queries per thread) with Nq not a multiple of a block's 1024
+    queries and Nk not a multiple of the 256-key tile: rtol 1e-4, atol 1e-5;
+    two launches give the same bits."""
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import (
+        gaussian_filter_cuda,
+        gaussian_filter_plain_cross,
+    )
+
+    fq, fk, v = _filter_case(2, 2500, 700, 5, C, 6.0, cuda, seed=4)
+    got = gaussian_filter_cuda(fq, fk, v)
+    again = gaussian_filter_cuda(fq, fk, v)
+    want = gaussian_filter_plain_cross(fq, fk, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(again, got)
+
+
+def test_bilateral_fp64_at_reference_magnitudes(cuda):
+    """Colours / 5 up to 51 (‖f‖² ≈ 7e3), position / 50: the kernel within
+    1e-4 of a float64 sum, relative to the largest output."""
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cuda
+
+    rng = np.random.default_rng(0)
+    size = 32
+    img = rng.integers(0, 255, (size, size, 3)).astype(np.float64)
+    yy, xx = np.mgrid[0:size, 0:size] / 50.0
+    feats = np.stack([xx, yy] + [img[..., c] / 5.0 for c in range(3)], -1).reshape(1, -1, 5)
+    vals = rng.uniform(0, 1, (1, size * size, 2))
+    d2 = ((feats[:, :, None, :] - feats[:, None, :, :]) ** 2).sum(-1)
+    gold = np.exp(-0.5 * d2) @ vals
+    f32 = torch.from_numpy(feats.astype(np.float32)).to(cuda)
+    got = gaussian_filter_cuda(f32, f32, torch.from_numpy(vals.astype(np.float32)).to(cuda))
+    rel = np.abs(got.cpu().double().numpy() - gold).max() / np.abs(gold).max()
+    assert rel <= 1e-4
 
 
 def test_bilateral_wrapper_routes_and_checks(cuda):

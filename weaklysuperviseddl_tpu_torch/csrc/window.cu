@@ -125,7 +125,8 @@ window_fwd(const float* __restrict__ probs, const float* __restrict__ img,
     __syncthreads();
     if (!inside) continue;
     wsdl::window_terms<CHUNK, false>(s_p, nc, t.y, t.x, p.H, p.W, p.pad, t.oy, t.ox, p.spatial,
-                                     tile_affinity(s_img, t, p), wsum, nullptr, nullptr);
+                                     tile_affinity(s_img, t, p), -p.pad, p.pad, wsum, nullptr,
+                                     nullptr);
   }
   const float tile_sum = wsdl::block_sum(wsum, s_red);
   if (threadIdx.x == 0) partials[static_cast<long>(t.b) * p.tiles + t.tile] = tile_sum;
@@ -161,7 +162,7 @@ window_bwd(const float* __restrict__ probs, const float* __restrict__ img,
 #pragma unroll
     for (int c = 0; c < CHUNK; ++c) gc[c] = gn[c] = 0.f;
     wsdl::window_terms<CHUNK, true>(s_p, nc, t.y, t.x, p.H, p.W, p.pad, t.oy, t.ox, p.spatial,
-                                    tile_affinity(s_img, t, p), wsum, gc, gn);
+                                    tile_affinity(s_img, t, p), -p.pad, p.pad, wsum, gc, gn);
     const long pix = t.base + static_cast<long>(t.y) * p.W + t.x;
 #pragma unroll
     for (int c = 0; c < CHUNK; ++c)

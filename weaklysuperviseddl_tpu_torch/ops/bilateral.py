@@ -27,6 +27,7 @@ CRF's "rff" backend, which ``masks/densecrf.py`` refuses.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -34,6 +35,10 @@ from weaklysuperviseddl_tpu_torch.ops.build import build
 
 SOURCE = "bilateral.cu"
 MAX_FEATURES = 128        # the kernel's shared-memory tiles hold d ≤ 128
+# The kernel's CRF variant (d 5, C ≤ 2) scales every feature by this before
+# differencing, so that exp(-½‖fq − fk‖²) = 2^(−‖s·fq − s·fk‖²): one exp2
+# instruction per key pair and no multiply by −½ (csrc/bilateral.cu).
+EXP2_SCALE = math.sqrt(0.5 * math.log2(math.e))
 PLAIN_CHUNK = 1 << 24     # elements of one [queries, keys] block of the plain version
 
 _lib = None
@@ -43,9 +48,11 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build(SOURCE)))
-        lib.wsdl_bilateral.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                                       + [ctypes.c_void_p])
+        lib.wsdl_bilateral.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                                       + [ctypes.c_float, ctypes.c_void_p])
         lib.wsdl_bilateral.restype = ctypes.c_int
+        lib.wsdl_bilateral_scratch_bytes.argtypes = [ctypes.c_int] * 4
+        lib.wsdl_bilateral_scratch_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -121,10 +128,14 @@ def gaussian_filter_cuda(feats_q, feats_k, values):
     if out.numel() == 0:
         return out
     lib = _load()
+    # the packed keys of the CRF variant (none for other d or C)
+    scratch = torch.empty((lib.wsdl_bilateral_scratch_bytes(B, Nk, d, C),), dtype=torch.uint8,
+                          device=fq.device)
     stream = torch.cuda.current_stream(fq.device).cuda_stream
     with torch.cuda.device(fq.device):
         err = lib.wsdl_bilateral(fq.data_ptr(), fk.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                 B, Nq, Nk, d, C, stream)
+                                 scratch.data_ptr() if scratch.numel() else None,
+                                 B, Nq, Nk, d, C, EXP2_SCALE, stream)
     if err != 0:
         raise RuntimeError(f"bilateral filter launch failed with cudaError {err}")
     gaussian_filter_cuda.launches += 1

@@ -23,10 +23,16 @@ with ``ctypes``.
 (as ``pallas_refine``'s ``_pick_plan``). "v1sym" (C=2 only) sweeps the window
 for class 0 alone and sets g₁ = −g₀. "v2" is the TPU's v1 with its window
 backward written as gathers; the kernel's window pass already is that gather,
-so "v2" runs "v1". "v2_aff" computes the K affinity planes of each image once,
-before the steps, and reads them in every step ([B,K,H,W] float scratch);
-its masks and losses equal "v1"'s. ``refine_plain`` is the golden of every
-plan: it checks ``plan`` and computes the same function for each.
+so "v2" runs "v1". The kernel's window pass takes each pixel pair's
+affinity once, from tables it writes once per call ([B, tiles, pairs] float
+scratch), and the gradient as 4·Σ_o aff_o·d_o at every pixel more than
+window//2 from the image's edges; the pixels nearer an edge take the gather
+over the reflect's preimages (its edge phase, whose pixel counts per tile
+``refine_cuda`` can return in ``edge_pixels``). "v2_aff" computes the K
+affinity planes of each image once, before the steps, and reads them in every
+step instead ([B,K,H,W] float scratch); its masks and losses equal "v1"'s.
+``refine_plain`` is the golden of every plan: it checks ``plan`` and computes
+the same function for each.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from weaklysuperviseddl_tpu_torch.ops.window import spatial_table
 SOURCE = "refine.cu"
 MAX_CLASSES = 4      # the kernel's compile-time class counts: 2, 3, 4
 MAX_WINDOW = 7       # windows 3, 5 and 7
+TILE = 16            # the window pass's tiles are TILE x TILE pixels
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 PLANS = ("v1", "v1sym", "v2", "v2_aff")
@@ -60,7 +67,8 @@ def _load():
         lib = ctypes.CDLL(str(build(SOURCE)))
         lib.wsdl_refine.argtypes = (
             [ctypes.c_void_p] * 4          # S, images, masks (int32), out (uint8)
-            + [ctypes.c_void_p] * 7        # X, M, V, G, partials, loss_acc, aff (scratch)
+            + [ctypes.c_void_p] * 4        # state, partials, loss_acc, aff (scratch)
+            + [ctypes.c_void_p]            # edge_pixels (int32, or None)
             + [ctypes.c_int] * 6           # B, H, W, C, window, num_steps
             + [ctypes.c_int] * 2           # plan, double_softmax
             + [ctypes.c_float] * 5         # inv2sc, normW, lambda_b, lr, threshold
@@ -68,6 +76,8 @@ def _load():
             + [ctypes.c_void_p]            # stream
         )
         lib.wsdl_refine.restype = ctypes.c_int
+        lib.wsdl_refine_aff_floats.argtypes = [ctypes.c_int] * 5
+        lib.wsdl_refine_aff_floats.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -144,11 +154,15 @@ def refine_plain(S, images, masks, lambda_boundary=0.1, threshold=0.5, lr=1e-2,
 
 def refine_cuda(S, images, masks, lambda_boundary=0.1, threshold=0.5, lr=1e-2,
                 num_steps=20, sigma_color=0.1, sigma_space=5.0, window_size=5,
-                loss="ncut", plan="auto"):
+                loss="ncut", plan="auto", edge_pixels=None):
     """The kernel: S [B,H,W,C] float32, images [B,H,W,3] float32, masks
     [B,H,W] integer, all contiguous CUDA tensors on one device → (uint8
     [B,H,W], mean loss as a 0-dim tensor), launched on the current stream
-    without synchronising. Raises on anything the kernel does not take."""
+    without synchronising. Raises on anything the kernel does not take.
+
+    ``edge_pixels``, if given, is a contiguous int32 tensor [B, ⌈H/TILE⌉,
+    ⌈W/TILE⌉] on the same device: every window pass writes there how many
+    pixels of each tile its edge phase took (0 for a tile that skipped it)."""
     plan = resolve_plan(plan, S.shape[-1] if S.ndim == 4 else 0)
     for name, t in (("S", S), ("images", images), ("masks", masks)):
         if t.device.type != "cuda":
@@ -178,31 +192,33 @@ def refine_cuda(S, images, masks, lambda_boundary=0.1, threshold=0.5, lr=1e-2,
         raise ValueError("S, images and masks must be on one device")
     if num_steps < 0:
         raise ValueError("num_steps must be >= 0")
+    tiles_y, tiles_x = (H + TILE - 1) // TILE, (W + TILE - 1) // TILE
+    if edge_pixels is not None and (
+            edge_pixels.shape != (B, tiles_y, tiles_x) or edge_pixels.dtype != torch.int32
+            or edge_pixels.device != S.device or not edge_pixels.is_contiguous()):
+        raise ValueError(f"edge_pixels must be a contiguous int32 tensor "
+                         f"{(B, tiles_y, tiles_x)} on {S.device}")
     double_softmax, inv2sc, normW, sspace = _constants(H, W, C, window_size, loss,
                                                        sigma_color, sigma_space)
     dev = S.device
     out = torch.empty((B, H, W), dtype=torch.uint8, device=dev)
-    loss_acc = torch.zeros((B,), dtype=torch.float32, device=dev)
+    loss_acc = torch.empty((B,), dtype=torch.float32, device=dev)  # zeroed by the kernel
     if B == 0:
         return out, loss_acc.sum()
     masks32 = masks.to(torch.int32).contiguous()
-    x = torch.empty((B, H, W, C), dtype=torch.float32, device=dev)
-    m = torch.empty_like(x)
-    v = torch.empty_like(x)
-    g = torch.empty_like(x)
-    tiles = ((H + 15) // 16) * ((W + 15) // 16)
-    partials = torch.empty((B, tiles, 2), dtype=torch.float32, device=dev)
-    K = len(window_offsets(window_size))
-    aff = (torch.empty((B, K, H, W), dtype=torch.float32, device=dev) if plan == "v2_aff"
-           else None)
-    spatial = spatial_table(window_size, sspace)
+    state = torch.empty((4, B, H, W, C), dtype=torch.float32, device=dev)  # X, m, v, G
+    partials = torch.empty((B, tiles_y * tiles_x, 2), dtype=torch.float32, device=dev)
     lib = _load()
+    # v2_aff's affinity planes, or the other plans' pair tables (csrc/refine.cu)
+    aff = torch.empty((lib.wsdl_refine_aff_floats(B, H, W, window_size, _PLAN_CODES[plan]),),
+                      dtype=torch.float32, device=dev)
+    spatial = spatial_table(window_size, sspace)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.wsdl_refine(
             S.data_ptr(), images.data_ptr(), masks32.data_ptr(), out.data_ptr(),
-            x.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(), partials.data_ptr(),
-            loss_acc.data_ptr(), None if aff is None else aff.data_ptr(), B, H, W, C,
+            state.data_ptr(), partials.data_ptr(), loss_acc.data_ptr(), aff.data_ptr(),
+            None if edge_pixels is None else edge_pixels.data_ptr(), B, H, W, C,
             window_size, num_steps, _PLAN_CODES[plan], int(double_softmax),
             inv2sc, normW, lambda_boundary, lr, threshold,
             ctypes.addressof(spatial), stream)

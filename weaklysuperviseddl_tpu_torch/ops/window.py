@@ -17,6 +17,7 @@ loaded with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -93,10 +94,12 @@ def _check(name, probs, images, window_size):
         raise ValueError(f"{name} cannot take probs of shape {tuple(probs.shape)}")
 
 
+@functools.lru_cache(maxsize=64)
 def spatial_table(window_size: int, sigma_space):
     """The spatial term of every offset (dy, dx) of the window, row-major, as
     the kernels take it: rounded to float32 as the plain version's is (0
-    without ``sigma_space``)."""
+    without ``sigma_space``). Cached: callers pass its address and never
+    write it."""
     pad = window_size // 2
     table = (ctypes.c_float * (window_size * window_size))()
     if sigma_space is not None:
