@@ -8,9 +8,12 @@ Phases, one JSON line each:
                (both set off: the serving path runs float32).
   2. build   - every CUDA source of the port, compiled with nvcc in parallel.
   3. cc      - the connected-components kernel against its plain PyTorch
-               version on the card, on every mask family, at [64,256,256] and
-               [3,250,333]: labels and keep-largest masks exactly equal, and
-               two launches identical. Times with CUDA events (median of 25).
+               version on the card, on every mask family, at [64,256,256],
+               [32,224,224], [3,250,333] (the one-block image plan) and
+               [2,512,512] (the tiles plan): labels and keep-largest masks
+               exactly equal, two launches identical, the plan the shape
+               chooses launched. Every family timed at [64,256,256] and
+               [32,224,224] (CUDA events, back to back, device ms by kernel).
   4. serve   - DeepLabV3-ResNet50 at full width (2 classes, seeded random
                weights) through Predictor(size=256, max_batch=64, clean=True,
                packed=True): masks against the same weights on the CPU, a
@@ -42,7 +45,8 @@ Phases, one JSON line each:
                [2,11,13,2] w3, [2,16,24,3] w5, [2,9,32,2] w7 and the full width
                [8,256,256,2] w5 on synthetic pets, both losses, values rtol 1e-5,
                gradients rtol 1e-4 / atol 1e-7, two launches bit-identical;
-               forward, backward and plain times beside the bounds. Then the
+               forward, backward and plain times beside the bounds, and each
+               wrapper's host time per call. Then the
                path, where masks move: one image's refinement under autograd
                through fused_local_normalized_cut_loss (20 Adam steps at lr 0.1)
                and through fused_boundary_loss (the boundary protocol's 75 steps
@@ -198,6 +202,23 @@ def kernel_ms(fn, runs: int = 10, warmup: int = 2) -> dict:
             "device_ms": device_ms(fn, runs, warmup)[0]}
 
 
+def host_ms(fn, runs: int = 20, warmup: int = 3) -> float:
+    """Host time of one call of ``fn``: the wall clock around ``runs`` calls
+    in a row that nothing waits for, per call (the card runs behind; keep
+    runs x launches a call under the launch queue's depth of about 1000)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / runs * 1e3
+
+
 def events_under_profiler_ms(fn, runs: int = 10, warmup: int = 2) -> float:
     """CUDA events around ``runs`` calls in a row while torch.profiler traces
     them, per call: set beside back_to_back_ms and device_ms, it tells a
@@ -287,40 +308,68 @@ def cc_bound_ms(shape) -> float:
     return float(np.prod(shape)) * (1 + 4) / HBM_BYTES_PER_S * 1e3
 
 
+def reset_cc_counts():
+    """The cc kernel's launch counts, in all and by plan, set to 0."""
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+
+    label_components_cuda.launches = 0
+    label_components_cuda.plan_launches = dict.fromkeys(label_components_cuda.plan_launches, 0)
+
+
+def check_cc_image_plan(path: str):
+    """The path launched the cc kernel, and every launch took the one-block
+    image plan (the paths' masks are 256² and 224²)."""
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda as cc
+
+    check(cc.launches > 0 and cc.plan_launches["image"] == cc.launches,
+          f"{path}: cc_label launched {cc.launches} times, by plan {cc.plan_launches}; "
+          "expected the image plan every time")
+
+
 def phase_cc():
     import torch
 
     from weaklysuperviseddl_tpu_torch.masks import synthetic
     from weaklysuperviseddl_tpu_torch.masks.components import keep_largest_batch, label_components
-    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda, plan_for
 
     results = []
     max_err = 0
-    for shape in ((64, 256, 256), (3, 250, 333)):
+    # the served batch, the pseudo-mask batch (both timed), a ragged shape, and
+    # one too large for a block's shared memory (the tiles plan)
+    for shape in ((64, 256, 256), (32, 224, 224), (3, 250, 333), (2, 512, 512)):
+        plan = plan_for(*shape[1:])
         for name in synthetic.FAMILIES:
             masks = torch.from_numpy(synthetic.family(name, shape[0], shape[1:], seed=7)).cuda()
+            before = label_components_cuda.plan_launches[plan]
             got = label_components_cuda(masks)
             again = label_components_cuda(masks)
             want = label_components(masks)
             torch.cuda.synchronize()
+            check(label_components_cuda.plan_launches[plan] == before + 2,
+                  f"cc {name} {shape} did not take the {plan} plan")
             max_err = max(max_err, int((got.long() - want.long()).abs().max()))
             check(torch.equal(got, want), f"cc labels differ from plain: {name} {shape}")
             check(torch.equal(again, got), f"cc labels differ between launches: {name} {shape}")
             kl = keep_largest_batch(masks, backend="kernel")
             check(torch.equal(kl, keep_largest_batch(masks, backend="plain")),
                   f"keep-largest differs from plain: {name} {shape}")
-            row = {"family": name, "shape": list(shape), "equal": True,
+            row = {"family": name, "shape": list(shape), "plan": plan, "equal": True,
                    "fg_frac": round(float(masks.float().mean()), 4),
                    "components": int((got.view(shape[0], -1) == torch.arange(
                        shape[1] * shape[2], device="cuda")).sum())}
+            if shape[0] in (64, 32):
+                row.update(kernel_ms(lambda: label_components_cuda(masks), runs=25, warmup=3))
+                row["kernel_device_ms"] = {
+                    short_name(k): v
+                    for k, v in device_ms(lambda: label_components_cuda(masks), runs=10)[1].items()}
+                row["bound_ms"] = cc_bound_ms(shape)
             if shape[0] == 64 and name in ("blobs", "speckle"):
-                row["kernel_ms"] = cuda_ms(lambda: label_components_cuda(masks))
                 row["plain_ms"] = cuda_ms(lambda: label_components(masks), runs=20, warmup=1)
                 row["keep_largest_ms"] = cuda_ms(lambda: keep_largest_batch(masks))
-                row["bound_ms"] = cc_bound_ms(shape)
             results.append(row)
     emit("cc", checks=results, max_abs_err=max_err, launches=label_components_cuda.launches,
-         kernels=["cc_label"])
+         plan_launches=label_components_cuda.plan_launches, kernels=["cc_label"])
     return max_err
 
 
@@ -344,6 +393,33 @@ class RecordingPredictor:
 
 def _requests(rng, n, hw):
     return (rng.uniform(0, 1, (n, *hw, 3)) * 255).astype(np.uint8)
+
+
+def serve_model():
+    """The serve phase's model on the card (DeepLabV3-ResNet50 os8, 2 classes,
+    seeded random weights, class-1 bias centred), the request stream it
+    draws from next, and the bias shift."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
+    from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
+
+    rng = np.random.default_rng(0)
+    model = init_weights(DeepLabV3(2, 50, 1.0), torch.Generator().manual_seed(0)).eval().cuda()
+    margin = centre_classifier_bias(model, _requests(rng, 8, (256, 256)), 256)
+    return model, rng, margin
+
+
+def served_argmax(model, rng, size: int = 256, max_batch: int = 64):
+    """The serve phase's masks before cleanup: the Predictor's argmax on a
+    batch of ``max_batch`` requests drawn from ``rng``, uint8 on the card."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.pipelines.serve import Predictor
+
+    raw = Predictor(model, size=size, max_batch=max_batch, device="cuda")(
+        _requests(rng, max_batch, (size, size)))
+    return torch.from_numpy(raw).cuda()
 
 
 def centre_classifier_bias(model, images, size: int):
@@ -422,15 +498,11 @@ def phase_serve():
     import torch
 
     from weaklysuperviseddl_tpu_torch.masks.components import keep_largest_batch
-    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
-    from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
     from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
     from weaklysuperviseddl_tpu_torch.pipelines.serve import MaskClient, MaskServer, Predictor
 
     size, max_batch = 256, 64
-    rng = np.random.default_rng(0)
-    model = init_weights(DeepLabV3(2, 50, 1.0), torch.Generator().manual_seed(0)).eval().cuda()
-    margin = centre_classifier_bias(model, _requests(rng, 8, (size, size)), size)
+    model, rng, margin = serve_model()
     cpu_model = copy.deepcopy(model).cpu()
 
     t0 = time.perf_counter()
@@ -448,16 +520,14 @@ def phase_serve():
           "served masks are not binary [2,256,256]")
     check(agree >= 0.995, f"card/CPU mask agreement {agree} < 0.995")
     # keep-largest on the card's own argmax: kernel against the plain version
-    raw = Predictor(model, size=size, max_batch=max_batch, device="cuda")(
-        _requests(rng, max_batch, (size, size)))
-    raw_dev = torch.from_numpy(raw).cuda()
+    raw_dev = served_argmax(model, rng, size, max_batch)
     cleaned = keep_largest_batch(raw_dev, backend="kernel")
     check(torch.equal(cleaned, keep_largest_batch(raw_dev, backend="plain")),
           "keep-largest on the served argmax differs from plain")
-    fg_raw, fg_clean = float(raw.mean()), float(cleaned.float().mean())
+    fg_raw, fg_clean = float(raw_dev.float().mean()), float(cleaned.float().mean())
 
     # ---- the main path: counts from 0, server + throughput, counts read after ----
-    label_components_cuda.launches = 0
+    reset_cc_counts()
     recorder = RecordingPredictor(pred)
     server = MaskServer(recorder, max_wait_ms=5.0).start()
     base = f"http://127.0.0.1:{server.port}"
@@ -500,6 +570,7 @@ def phase_serve():
     launches = label_components_cuda.launches
     check(out.shape == (len(many), size, size), "predict_many shape")
     check(launches > 0, "the main path never launched the cc kernel")
+    check_cc_image_plan("serve")
 
     # every reply equals a direct Predictor call on the batch it was served in
     direct = {}
@@ -923,6 +994,9 @@ def phase_window(path_batch, batch8):
                                   warmup=5),
         "boundary_bwd": kernel_ms(lambda: window_sum_grad_cuda(S8, x8, 0.1, 5.0, 5), runs=50,
                                   warmup=5),
+        # the wrappers' host time per call (calls in a row, nothing waited for)
+        "fwd_host_ms": host_ms(lambda: window_sum_cuda(t8, x8, 0.1, None, 5), runs=50),
+        "bwd_host_ms": host_ms(lambda: window_sum_grad_cuda(t8, x8, 0.1, None, 5), runs=50),
         "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by, "fwd_gflop": ops / 1e9,
         "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by, "bwd_gflop": ops_b / 1e9,
         "shape": [8, 256, 256, 2], "window": 5,
@@ -1044,7 +1118,7 @@ def phase_weakly():
     sw = Stopwatch("cuda")
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path: counts from 0, the pipeline, counts read after ----
-    label_components_cuda.launches = 0
+    reset_cc_counts()
     refine_cuda.launches = 0
     refine_cuda.plan_launches = dict.fromkeys(refine_cuda.plan_launches, 0)
     t0 = time.perf_counter()
@@ -1060,6 +1134,7 @@ def phase_weakly():
           f"refine launched {launches['refine']} times on the main path, expected {want_refine}")
     check(plans["v1sym"] == want_refine, f"plan 'auto' ran {plans} at C=2, not v1sym")
     check(launches["cc_label"] > 0, "the main path never launched the cc kernel")
+    check_cc_image_plan("weakly")
     m = result.metrics
     scalars = {k: m[k] for k in ("iou", "acc", "final_loss", "alt_iou", "alt_acc")}
     check(all(math.isfinite(v) for v in scalars.values()), f"non-finite metrics {scalars}")
@@ -1155,7 +1230,7 @@ def phase_weakly_boundary():
     sw = Stopwatch("cuda")
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path: counts from 0, the pipeline, counts read after ----
-    label_components_cuda.launches = 0
+    reset_cc_counts()
     refine_cuda.launches = 0
     refine_cuda.plan_launches = dict.fromkeys(refine_cuda.plan_launches, 0)
     t0 = time.perf_counter()
@@ -1171,6 +1246,7 @@ def phase_weakly_boundary():
           f"refine launched {launches['refine']} times ({plans}) on the boundary path, "
           f"expected {want_refine}, all v1sym")
     check(launches["cc_label"] > 0, "the boundary path never launched the cc kernel")
+    check_cc_image_plan("weakly_boundary")
     m = result.metrics
     scalars = {k: m[k] for k in ("iou", "acc", "final_loss", "alt_iou", "alt_acc")}
     check(all(math.isfinite(v) for v in scalars.values()), f"non-finite metrics {scalars}")
@@ -1495,8 +1571,9 @@ def phase_weakly_crf():
     sw = Stopwatch("cuda")
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path: every count from 0, the pipeline, counts read after ----
-    for kernel in (gaussian_filter_cuda, cam_fusion_cuda, label_components_cuda, refine_cuda):
+    for kernel in (gaussian_filter_cuda, cam_fusion_cuda, refine_cuda):
         kernel.launches = 0
+    reset_cc_counts()
     refine_cuda.plan_launches = dict.fromkeys(refine_cuda.plan_launches, 0)
     t0 = time.perf_counter()
     result = run_weakly_supervised_alternating(cfg, stopwatch=sw, log=lambda *_: None,
@@ -1513,6 +1590,7 @@ def phase_weakly_crf():
     check(launches["cc_label"] > 0 and launches["refine"] > 0,
           f"the CRF path did not launch cc_label and refine: {launches}")
     check(launches["cam_fusion"] == 0, "fusion='auto' launched the cam_fusion kernel")
+    check_cc_image_plan("weakly_crf")
     check(plans["v1sym"] == launches["refine"], f"plan 'auto' ran {plans} at C=2, not v1sym")
     metrics = result.metrics
     scalars = {k: metrics[k] for k in ("iou", "acc", "final_loss", "alt_iou", "alt_acc")}
@@ -1608,7 +1686,7 @@ def main() -> int:
     boundary_launches = timed("weakly_boundary", phase_weakly_boundary)
 
     from weaklysuperviseddl_tpu_torch.masks.components import label_components
-    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda, plan_for
 
     def by_path(name, **paths):
         paths["weakly_crf"] = crf_launches.get(name, 0)
@@ -1634,6 +1712,7 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call labels connected components
         "shape": list(shape),
+        "plan": plan_for(*shape[1:]),  # every path launch took it (checked in each phase)
     }, {
         "name": "refine",
         "route": "cuda",
@@ -1674,6 +1753,7 @@ def main() -> int:
         "launches_by_path": {"window": window["launches"]["window_fwd"]},
         "max_abs_err": window["max_abs_err"]["value"],  # of the losses, against plain
         **window["fwd"],
+        "host_ms": window["fwd_host_ms"],
         "plain_ms": window["fwd_plain_ms"],
         "bound_ms": window["fwd_bound_ms"],
         "bound_by": window["fwd_bound_by"],
@@ -1688,6 +1768,7 @@ def main() -> int:
         "launches_by_path": {"window": window["launches"]["window_bwd"]},
         "max_abs_err": window["max_abs_err"]["grad"],  # of the losses' gradients
         **window["bwd"],
+        "host_ms": window["bwd_host_ms"],
         "plain_ms": window["bwd_plain_ms"],
         "bound_ms": window["bwd_bound_ms"],
         "bound_by": window["bwd_bound_by"],

@@ -1,27 +1,32 @@
 #!/usr/bin/env python3
-"""Times the PyTorch port's bilateral-filter (K3), refinement (K1) and
-window-loss (K4) kernels of this checkout against those of an earlier
-checkout, in turns on one GPU.
+"""Times the PyTorch port's bilateral-filter (K3), refinement (K1),
+window-loss (K4) and connected-components (K2) kernels of this checkout
+against those of an earlier checkout, in turns on one GPU.
 
-    python3 scripts/compare_port_kernels.py --baseline DIR [--out FILE]
+    python3 scripts/compare_port_kernels.py --baseline DIR [--cases REGEX] [--out FILE]
 
 DIR is an earlier checkout of the repository, from the one that added the
 window-loss kernels on (for example ``git archive <commit> | tar -x -C
 DIR``). Each checkout runs in processes of its own, through its own wrappers
 (``ops/bilateral.py::gaussian_filter_cuda``, ``ops/refine.py::refine_cuda``
 with ``plan``, ``ops/window.py::window_sum_cuda`` and
-``window_sum_grad_cuda``), with its kernels built from its own ``csrc/`` by
-its own ``ops/build.py``. The inputs are made once, by this checkout, as
-``chip_smoke.py``'s crf, refine and window phases make them. The runs go baseline, current,
-current, baseline: a case's ``ms`` is the mean of its two CUDA-event medians
+``window_sum_grad_cuda``, ``ops/cc.py::label_components_cuda``), with its
+kernels built from its own ``csrc/`` by its own ``ops/build.py``. The inputs
+are made once, by this checkout, as ``chip_smoke.py``'s crf, refine, window
+and serve phases make them; K2 runs every family of ``masks/synthetic.py``
+at [64,256,256] (the served batch) and [32,224,224] (the pseudo-mask batch),
+and the serve phase's argmax masks. ``--cases`` keeps the cases whose name
+the regular expression matches. The runs go baseline, current, current,
+baseline: a case's ``ms`` is the mean of its two CUDA-event medians
 (``chip_smoke.py::cuda_ms``), ``ms_runs`` both, and ``back_to_back_ms``,
-``device_ms`` (the profiler's summed kernel time per call) and ``kernel_ms``
-(its split by kernel) come from the second run. The baseline's outputs are
-held to the current ones: bilateral within 1e-4 relative, refinement masks
-agreeing on >= 0.9999 of pixels with the loss within 1e-4, window losses
-within 1e-5 of the largest value. Prints one JSON line per case (the first
-holds the card, torch and each checkout's ``-Xptxas -v`` summary), and
-writes them to FILE too if given.
+``device_ms`` (the profiler's summed kernel time per call), ``kernel_ms``
+(its split by kernel) and ``host_ms`` (the wrapper's host time per call,
+``chip_smoke.py::host_ms``) come from the second run. The baseline's outputs
+are held to the current ones: bilateral within 1e-4 relative, refinement
+masks agreeing on >= 0.9999 of pixels with the loss within 1e-4, window
+losses within 1e-5 of the largest value, labels equal. Prints one JSON line
+per case (the first holds the card, torch and each checkout's ``-Xptxas -v``
+summary), and writes them to FILE too if given.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -36,7 +42,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 WORK = ROOT / "weaklysuperviseddl_tpu_torch" / "build" / "compare"  # in .gitignore
-SOURCES = ("bilateral.cu", "refine.cu", "window.cu")
+SOURCES = ("bilateral.cu", "refine.cu", "window.cu", "cc.cu")
+CC_SHAPES = {"64x256": (64, 256, 256), "32x224": (32, 224, 224)}
 REFINE_CONFIGS = (  # name, inputs, keyword arguments, plans
     ("ncut_4x256_20_steps", "b4", {}, ("v1sym", "v1", "v2_aff")),
     ("ncut_8x256_10_steps", "b8", {"num_steps": 10}, ("v1sym",)),
@@ -56,13 +63,14 @@ def smoke():
 
 
 def make_inputs(path: Path) -> None:
-    """The crf, refine and window phases' inputs, saved on the host."""
+    """The crf, refine, window and cc phases' inputs, saved on the host."""
     import numpy as np
     import torch
 
     sys.path.insert(0, str(ROOT))
     from weaklysuperviseddl_tpu_torch.data.preprocess import normalize_images
     from weaklysuperviseddl_tpu_torch.data.synthetic import synthetic_pet_arrays
+    from weaklysuperviseddl_tpu_torch.masks import synthetic
     from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
     from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
 
@@ -76,19 +84,27 @@ def make_inputs(path: Path) -> None:
     x = normalize_images(torch.from_numpy(images).cuda()).contiguous()
     probs = torch.softmax(torch.randn((8, 256, 256, 2), device="cuda",
                                       generator=torch.Generator("cuda").manual_seed(0)), -1)
+    masks = {f"cc_{name}_{tag}": (torch.from_numpy(synthetic.family(name, shape[0], shape[1:],
+                                                                    seed=7)),)
+             for tag, shape in CC_SHAPES.items() for name in synthetic.FAMILIES}
+    served, rng, _ = cs.serve_model()
+    cs._requests(rng, 2, (300, 400))  # the serve phase's card-against-CPU requests come first
+    masks["cc_served_64x256"] = (cs.served_argmax(served, rng),)
     cpu = lambda ts: tuple(t.cpu() for t in ts)  # noqa: E731
     torch.save({"bilateral": cpu((fq, fk, v)), "b4": cpu(b4), "b8": cpu(b8),
-                "window": cpu((probs, x))}, path)
+                "window": cpu((probs, x)), **{k: cpu(m) for k, m in masks.items()}}, path)
 
 
-def worker(checkout: Path, inputs: Path, result: Path) -> None:
-    """Every case through ``checkout``'s wrappers: outputs and timings."""
+def worker(checkout: Path, inputs: Path, result: Path, pattern: str) -> None:
+    """Every case whose name matches ``pattern`` through ``checkout``'s
+    wrappers: outputs and timings."""
     sys.path.insert(0, str(checkout))
     import torch
 
     import weaklysuperviseddl_tpu_torch
     from weaklysuperviseddl_tpu_torch.ops import build
     from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cuda
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
     from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
     from weaklysuperviseddl_tpu_torch.ops.window import window_sum_cuda, window_sum_grad_cuda
 
@@ -115,9 +131,14 @@ def worker(checkout: Path, inputs: Path, result: Path) -> None:
     one = torch.ones((), device="cuda")
     cases["window_forward"] = (lambda: window_sum_cuda(probs, x, 0.1, None, 5), 25)
     cases["window_backward"] = (lambda: window_sum_grad_cuda(probs, x, 0.1, None, 5, one), 25)
+    for name, tensors in data.items():
+        if name.startswith("cc_"):
+            cases[name] = (lambda masks=tensors[0]: label_components_cuda(masks), 25)
 
     outputs, timings = {}, {}
     for name, (fn, runs) in cases.items():
+        if not re.search(pattern, name):
+            continue
         out = fn()
         torch.cuda.synchronize()
         outputs[name] = tuple(t.cpu() for t in out) if isinstance(out, tuple) else out.cpu()
@@ -125,7 +146,7 @@ def worker(checkout: Path, inputs: Path, result: Path) -> None:
         kernels = {}
         for k, ms in cs.device_ms(fn, runs=5)[1].items():
             kernels[cs.short_name(k)] = kernels.get(cs.short_name(k), 0.0) + ms
-        timings[name] = {**times, "kernel_ms": kernels}
+        timings[name] = {**times, "kernel_ms": kernels, "host_ms": cs.host_ms(fn)}
     torch.save({"outputs": outputs, "timings": timings, "ptxas": ptxas}, result)
 
 
@@ -136,6 +157,9 @@ def agreement(name: str, got, want) -> dict:
         loss = abs(float(got[1]) - float(want[1])) / abs(float(want[1]))
         return {"mask_agreement": masks, "loss_rel_diff": loss,
                 "ok": masks >= 0.9999 and loss <= 1e-4}
+    if name.startswith("cc_"):
+        equal = got.shape == want.shape and bool((got == want).all())
+        return {"labels_equal": equal, "ok": equal}
     if name.startswith("bilateral"):
         rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
         return {"max_rel_diff": rel, "ok": rel <= 1e-4}
@@ -146,13 +170,15 @@ def agreement(name: str, got, want) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, help="an earlier checkout of the repository")
+    ap.add_argument("--cases", default="", help="time only the cases this regular expression "
+                    "finds in their names")
     ap.add_argument("--out", type=Path, help="also write the JSON lines to this file")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--result", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker is not None:
-        worker(args.worker, args.inputs, args.result)
+        worker(args.worker, args.inputs, args.result, args.cases)
         return 0
     if args.baseline is None:
         ap.error("--baseline DIR is required")
@@ -169,7 +195,8 @@ def main() -> int:
     for i, which in enumerate(("baseline", "current", "current", "baseline")):
         result = WORK / f"run{i}_{which}.pt"
         subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker",
-                        str(checkouts[which]), "--inputs", str(inputs), "--result", str(result)],
+                        str(checkouts[which]), "--inputs", str(inputs), "--result", str(result),
+                        "--cases", args.cases],
                        check=True, timeout=1800)
         runs[which].append(torch.load(result))
 

@@ -25,17 +25,41 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(4, 70, 99), (2, 256, 256), (3, 31, 33)])
+@pytest.mark.parametrize("shape", [(4, 70, 99), (2, 256, 256), (3, 31, 33), (2, 432, 432),
+                                   (2, 434, 434), (1, 1, 9), (1, 9, 1), (2, 224, 48)])
 @pytest.mark.parametrize("name", synthetic.FAMILIES)
 def test_kernel_labels_equal_plain(cuda, name, shape):
+    """Both plans: 432² is the largest square the one-block image plan takes,
+    434² goes to the tiles plan (ops/cc.py::plan_for)."""
+    from weaklysuperviseddl_tpu_torch.ops.cc import plan_for
+
     masks = torch.from_numpy(synthetic.family(name, shape[0], shape[1:], seed=3))
     want = label_components(masks)
+    plan = plan_for(*shape[1:])
+    before = label_components_cuda.plan_launches[plan]
     got = label_components_cuda(masks.to(cuda))
     again = label_components_cuda(masks.to(cuda))
     torch.cuda.synchronize()
+    assert label_components_cuda.plan_launches[plan] == before + 2
     assert got.dtype == torch.int32 and got.shape == masks.shape
     assert torch.equal(got.cpu(), want)
     assert torch.equal(again, got)  # atomics in any order, the same labels
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kernel_label_is_the_smallest_pixel_not_node(cuda, offset):
+    """Node 0 holds only pixel (1,0), index 8, but its component's smallest
+    pixel is (0,5): the label is 5. offset 1 starts the masks one byte into
+    their storage, so the kernel takes its byte-wise path."""
+    mask = torch.zeros((2, 4, 16), dtype=torch.uint8)
+    for y, x in ((1, 0), (2, 1), (2, 2), (2, 3), (1, 4), (0, 5)):
+        mask[:, y, x] = 1
+    store = torch.zeros(mask.numel() + offset, dtype=torch.uint8, device=cuda)
+    dev = store[offset:].view(mask.shape)
+    dev.copy_(mask.to(cuda))
+    got = label_components_cuda(dev).cpu()
+    assert set(got[mask == 1].tolist()) == {5}
+    assert torch.equal(got, label_components(mask))
 
 
 def test_keep_largest_auto_launches_the_kernel(cuda):
@@ -220,12 +244,15 @@ def test_refine_wrapper_routes_and_checks(cuda):
 
 @pytest.mark.parametrize("loss", ["ncut", "boundary"])
 @pytest.mark.parametrize("B,H,W,C,ws", [(2, 11, 13, 2, 3), (2, 16, 24, 3, 5), (2, 9, 32, 2, 7),
-                                        (1, 40, 35, 5, 5), (3, 64, 64, 2, 5)])
+                                        (1, 40, 35, 5, 5), (3, 64, 64, 2, 5), (1, 48, 52, 1, 3),
+                                        (2, 56, 60, 6, 7)])
 def test_window_kernels_equal_plain(cuda, B, H, W, C, ws, loss):
     """The losses through the kernels against the plain losses of
     losses/window.py: values rtol 1e-5, gradients rtol 1e-4 / atol 1e-7 (the
     JAX package's tolerances for its Pallas kernels); two launches give the
-    same bits. C=5 runs the kernels' class chunks."""
+    same bits. C=5 and 6 run the kernels' class chunks; 40x35 and the larger
+    shapes have tiles clear of the edges at every window (the gradient's
+    pair-table path)."""
     from weaklysuperviseddl_tpu_torch.losses.window import boundary_loss, local_normalized_cut_loss
     from weaklysuperviseddl_tpu_torch.ops.window import (
         fused_boundary_loss,

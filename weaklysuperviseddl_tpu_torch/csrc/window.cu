@@ -14,17 +14,26 @@
 // _window_sum) and ::_bwd_kernel (the gradient, via _window_sum_grad) of the
 // JAX package, which custom_vjp fused_window_sum joins into one function.
 //
-// Design. One block per 16x16 tile of one image, as refine.cu's window pass:
-// the tile and a halo of `pad` pixels of the image and of up to CHUNK class
-// planes are loaded into shared memory (clipped to the image; reflected
-// neighbours and preimages of tile pixels lie inside the halo), one thread per
-// tile pixel. The forward writes one partial sum per tile; a second launch of
-// one block adds the partials in a fixed order, so there are no float atomics
-// and two launches give the same bits. The backward is the gather form of the
-// JAX kernel's slice-accumulates and reflect fold: one write per pixel and
-// class. Both kernels take one pixel's terms from window_common.cuh::
-// window_terms, as refine.cu's window pass does. More than CHUNK classes are
-// swept in chunks, the affinities recomputed for each chunk.
+// Design. One block per 16x16 tile of one image, one thread per tile pixel.
+// More than CHUNK classes are swept in chunks of CHUNK class planes.
+//   Forward: the tile and a halo of `pad` pixels of the image and of a chunk
+//   of S are loaded into shared memory (clipped to the image; reflected
+//   neighbours lie inside the halo), and each pixel takes its terms from
+//   window_common.cuh::window_terms, its affinities recomputed for each
+//   chunk. It writes one partial sum per tile; a second launch of one block
+//   adds the partials in a fixed order, so there are no float atomics and two
+//   launches give the same bits.
+//   Backward, the gather form of the JAX kernel's slice-accumulates and
+//   reflect fold (one write per pixel and class), built as refine.cu's window
+//   pass: the image and S are staged over a halo that holds reflect's values,
+//   the tile's pair table (window_common.cuh::fill_pairs: one affinity per
+//   pair of positions) is written once for all chunks, and each pixel more
+//   than pad from every edge takes 4 sum_o aff_o(u) d_o(u) from it
+//   (centre_terms; the neighbour role's terms are minus the centre role's
+//   there). The pixels within pad of an edge (window_common.cuh::near_edge),
+//   where reflect adds preimages, are listed and spread over the block's lane
+//   groups through window_terms, their affinities recomputed. Two launches
+//   give the same bits.
 //
 // Bound. Inside the image the terms (p, o) and (p + o, -o) are one pair, so
 // the function needs K/2 affinities per pixel (11 operations each) and per
@@ -32,9 +41,12 @@
 // read once and, backward, the gradient written once. At [8,256,256,2],
 // window 5, bytes bind both: 3.1 and 4.4 us (chip_smoke.py's window_work).
 // What the design does about it: every byte is read once from device memory
-// into shared memory, and the affinities are recomputed in registers instead
-// of stored; each pixel computes its own terms, so the forward computes every
-// pair's affinity twice and the backward four times (about 2K expf per pixel).
+// into shared memory, and the affinities are computed in registers or shared
+// memory instead of stored in device memory. The forward computes every
+// pair's affinity twice (K expf per pixel). The backward computes the tile's
+// pairs once (K/2 per pixel, plus the halo's: about 17 at window 5) and only
+// the edge pixels recompute theirs; before, every pixel recomputed both roles'
+// (about 2K expf) and walked the reflect preimages.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and loaded with ctypes (ops/window.py). The entry points return the first
@@ -61,8 +73,8 @@ struct Params {
   float spatial[MAX_WIN * MAX_WIN];   // spatial term of offset (dy, dx), row-major
 };
 
-// The tile's origin and the image halo (shared coordinates: image coordinate -
-// origin), loaded by every block of both kernels.
+// The forward's tile origin and image halo (shared coordinates: image
+// coordinate - origin).
 struct Tile {
   int b, tile, oy, ox, hs, y, x;
   long base;
@@ -142,31 +154,168 @@ window_sum_partials(const float* __restrict__ partials, long n, float* __restric
   if (threadIdx.x == 0) out[0] = total;
 }
 
+// window_bwd's shared memory, floats: the image and NC class planes of probs
+// over the tile and a halo that holds reflect's values (position z holds
+// pixel reflect(z)), the tile's pair table; then the edge phase's pixel list
+// and its count (ints).
+template <int PAD, int NC>
+struct BwdSmem {
+  static constexpr int FLOATS = (3 + NC) * HALO * HALO + wsdl::Window<PAD>::PAIRS;
+  static constexpr size_t BYTES = sizeof(float) * FLOATS + sizeof(int) * (THREADS + 1);
+};
+
 // grad = (d sum / d S) * gscale[0]; gscale is a device scalar (the incoming
-// gradient of the sum), read once per thread.
+// gradient of the sum), read once per thread. The pair table is written once
+// per block, for all classes; each pixel more than PAD from every edge takes
+// 4 sum_o aff_o(u) d_o(u) from it (centre_terms), and the pixels within PAD
+// of an edge are listed and spread over the block, WIN lanes a pixel and a
+// row of its window a lane, through window_terms (affinities recomputed from
+// the image), the rows' sums added in row order by shuffles. Every load of
+// the image and the first chunk is issued before the first store to shared
+// memory. NC: the classes swept at once, min(C, CHUNK), a constant so that
+// one or two classes do not pay for CHUNK.
+template <int PAD, int NC>
 __global__ void __launch_bounds__(THREADS)
 window_bwd(const float* __restrict__ probs, const float* __restrict__ img,
            const float* __restrict__ gscale, float* __restrict__ grad, const Params p) {
-  __shared__ float s_img[3][HALO][HALO];
-  __shared__ float s_p[CHUNK][HALO][HALO];
-  const Tile t = load_tile(img, s_img, p);
-  const bool inside = t.y < p.H && t.x < p.W;
-  const float g = inside ? gscale[0] : 0.f;
-  for (int c0 = 0; c0 < p.C; c0 += CHUNK) {
-    const int nc = min(CHUNK, p.C - c0);
-    __syncthreads();  // the previous chunk's reads are done
-    load_chunk(probs, s_p, t, c0, nc, p);
-    __syncthreads();
-    if (!inside) continue;
-    float wsum = 0.f, gc[CHUNK], gn[CHUNK];  // wsum unused: the compiler drops it
+  using Smem = BwdSmem<PAD, NC>;
+  extern __shared__ float smem[];
+  float(*s_img)[HALO][HALO] = reinterpret_cast<float(*)[HALO][HALO]>(smem);
+  float(*s_p)[HALO][HALO] = s_img + 3;
+  float* s_pair = smem + (3 + NC) * HALO * HALO;
+  int* s_edge = reinterpret_cast<int*>(smem + Smem::FLOATS);  // the edge phase's pixels
+  int* s_nedge = s_edge + THREADS;
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const int ty0 = (tile / p.tiles_x) * TILE, tx0 = (tile % p.tiles_x) * TILE;
+  const int H = p.H, W = p.W, C = p.C;
+  const long base = static_cast<long>(b) * H * W;
+  const int oy = ty0 - PAD, ox = tx0 - PAD;
+  const int y = ty0 + threadIdx.x / TILE, x = tx0 + threadIdx.x % TILE;
+  const bool inside = y < H && x < W;
+  const float g = gscale[0];
+  if (threadIdx.x == 0) *s_nedge = 0;
+
+  // the halo's pixels (reflect's), their colour and the first chunk's classes
+  constexpr int HS = TILE + 2 * PAD, PER_THREAD = (HS * HS + THREADS - 1) / THREADS;
+  long src[PER_THREAD];
+  float im[PER_THREAD][3], pr[PER_THREAD][NC];
+  const int nc0 = min(NC, C);
 #pragma unroll
-    for (int c = 0; c < CHUNK; ++c) gc[c] = gn[c] = 0.f;
-    wsdl::window_terms<CHUNK, true>(s_p, nc, t.y, t.x, p.H, p.W, p.pad, t.oy, t.ox, p.spatial,
-                                    tile_affinity(s_img, t, p), -p.pad, p.pad, wsum, gc, gn);
-    const long pix = t.base + static_cast<long>(t.y) * p.W + t.x;
+  for (int j = 0; j < PER_THREAD; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int sy = wsdl::reflect_reach(oy + i / HS, H), sx = wsdl::reflect_reach(ox + i % HS, W);
+    src[j] = i < HS * HS && sy >= 0 && sx >= 0 ? base + static_cast<long>(sy) * W + sx : -1;
 #pragma unroll
-    for (int c = 0; c < CHUNK; ++c)
-      if (c < nc) grad[pix * p.C + c0 + c] = 2.f * (gc[c] - gn[c]) * g;
+    for (int ch = 0; ch < 3; ++ch) im[j][ch] = src[j] < 0 ? 0.f : img[src[j] * 3 + ch];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) pr[j][c] = src[j] < 0 || c >= nc0 ? 0.f : probs[src[j] * C + c];
+  }
+#pragma unroll
+  for (int j = 0; j < PER_THREAD; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    if (i >= HS * HS) continue;
+    const int hy = i / HS, hx = i % HS;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) s_img[ch][hy][hx] = im[j][ch];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) s_p[c][hy][hx] = pr[j][c];
+  }
+  __syncthreads();
+  wsdl::fill_pairs<PAD>(s_img, s_pair, p.spatial, p.inv2sc);
+  const bool edges = !wsdl::interior_tile(ty0, tx0, H, W, PAD);  // pixels near an edge
+  const bool listed = edges && inside && wsdl::near_edge(y, x, H, W, PAD);
+  if (listed) s_edge[atomicAdd(s_nedge, 1)] = threadIdx.x;  // any order: pixels are independent
+  __syncthreads();
+
+  const long pix = base + static_cast<long>(y) * W + x;
+  for (int c0 = 0; c0 < C; c0 += NC) {
+    const int nc = min(NC, C - c0);
+    if (c0 > 0) {
+      __syncthreads();  // the previous chunk's reads are done
+#pragma unroll
+      for (int j = 0; j < PER_THREAD; ++j) {
+        const int i = threadIdx.x + j * THREADS;
+        if (i >= HS * HS) continue;
+        const int hy = i / HS, hx = i % HS;
+        for (int c = 0; c < nc; ++c)
+          s_p[c][hy][hx] = src[j] < 0 ? 0.f : probs[src[j] * C + c0 + c];
+      }
+      __syncthreads();
+    }
+    if (inside && !listed) {
+      float wsum = 0.f, gc[NC];  // wsum unused: the compiler drops it
+#pragma unroll
+      for (int c = 0; c < NC; ++c) gc[c] = 0.f;
+      const wsdl::PairAffinity<PAD> pairs{s_pair, y - ty0, x - tx0};
+      wsdl::centre_terms<PAD, NC, true>(s_p, nc, y - oy, x - ox, pairs, wsum, gc);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        if (c < nc) grad[pix * C + c0 + c] = 4.f * gc[c] * g;
+    }
+    if (!edges) continue;
+    constexpr int WIN = 2 * PAD + 1, GROUPS = 32 / WIN, STRIDE = THREADS / 32 * GROUPS;
+    const int lane = threadIdx.x % 32, first = lane / WIN * WIN;
+    const int slot = threadIdx.x / 32 * GROUPS + lane / WIN;
+    const int n = *s_nedge;
+    for (int i0 = 0; i0 < n; i0 += STRIDE) {  // the same trips in every lane (shuffles)
+      const int i = i0 + slot;
+      const int at = lane < GROUPS * WIN && i < n ? s_edge[i] : -1;
+      const int ey = ty0 + at / TILE, ex = tx0 + at % TILE;
+      const bool mine = at >= 0;
+      float gc[NC], gn[NC], w = 0.f;  // w unused
+#pragma unroll
+      for (int c = 0; c < NC; ++c) gc[c] = gn[c] = 0.f;
+      if (mine) {
+        const int dy = lane - first - PAD;  // this lane's row of the window
+        const int uy = ey - oy, ux = ex - ox;
+        const wsdl::TileAffinity recompute{s_img, oy, ox, s_img[0][uy][ux], s_img[1][uy][ux],
+                                           s_img[2][uy][ux], p.inv2sc};
+        wsdl::window_terms<NC, true>(s_p, nc, ey, ex, H, W, PAD, oy, ox, p.spatial, recompute,
+                                     dy, dy, w, gc, gn);
+      }
+      float gct[NC], gnt[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        gct[c] = gnt[c] = 0.f;
+#pragma unroll
+        for (int r = 0; r < WIN; ++r) {
+          gct[c] += __shfl_sync(0xffffffffu, gc[c], min(first + r, 31));
+          gnt[c] += __shfl_sync(0xffffffffu, gn[c], min(first + r, 31));
+        }
+      }
+      if (mine && lane == first) {
+        const long at_pix = base + static_cast<long>(ey) * W + ex;
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          if (c < nc) grad[at_pix * C + c0 + c] = 2.f * (gct[c] - gnt[c]) * g;
+      }
+    }
+  }
+}
+
+// window_bwd at this window and class count, its shared memory raised above
+// the default 48 KB where it needs more (window 7).
+template <int PAD, int NC>
+cudaError_t launch_bwd_nc(const float* probs, const float* img, const float* gscale, float* grad,
+                          const Params& p, cudaStream_t s) {
+  constexpr size_t smem = BwdSmem<PAD, NC>::BYTES;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        window_bwd<PAD, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  window_bwd<PAD, NC><<<dim3(p.tiles, p.B), THREADS, smem, s>>>(probs, img, gscale, grad, p);
+  return cudaGetLastError();
+}
+
+template <int PAD>
+cudaError_t launch_bwd(const float* probs, const float* img, const float* gscale, float* grad,
+                       const Params& p, cudaStream_t s) {
+  switch (p.C < CHUNK ? p.C : CHUNK) {
+    case 1: return launch_bwd_nc<PAD, 1>(probs, img, gscale, grad, p, s);
+    case 2: return launch_bwd_nc<PAD, 2>(probs, img, gscale, grad, p, s);
+    case 3: return launch_bwd_nc<PAD, 3>(probs, img, gscale, grad, p, s);
+    default: return launch_bwd_nc<PAD, CHUNK>(probs, img, gscale, grad, p, s);
   }
 }
 
@@ -219,8 +368,15 @@ extern "C" int wsdl_window_sum_grad(const void* probs, const void* img, const vo
   Params p;
   if (!make_params(p, B, H, W, C, window, inv2sc, spatial))
     return static_cast<int>(cudaErrorInvalidValue);
-  window_bwd<<<dim3(p.tiles, B), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(probs), static_cast<const float*>(img),
-      static_cast<const float*>(gscale), static_cast<float*>(grad), p);
-  return static_cast<int>(cudaGetLastError());
+  const float* P = static_cast<const float*>(probs);
+  const float* I = static_cast<const float*>(img);
+  const float* G = static_cast<const float*>(gscale);
+  float* out = static_cast<float*>(grad);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p.pad) {
+    case 1: return static_cast<int>(launch_bwd<1>(P, I, G, out, p, s));
+    case 2: return static_cast<int>(launch_bwd<2>(P, I, G, out, p, s));
+    case 3: return static_cast<int>(launch_bwd<3>(P, I, G, out, p, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -4,11 +4,13 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled on first use
 into ``build/`` (listed in ``.gitignore``), named by a hash of its source and
 of the shared headers ``csrc/*.cuh``, so a changed source never loads a stale
 library. The libraries are loaded with
-``ctypes`` by the module that wraps each kernel.
+``ctypes`` by the module that wraps each kernel; ``launch_device`` is the
+device context such a launch runs in.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import shutil
@@ -61,3 +63,15 @@ def build(source: str) -> Path:
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def launch_device(device):
+    """The context a ctypes launch onto a tensor's CUDA ``device`` runs in:
+    nothing to enter when it is the current device already (entering
+    ``torch.cuda.device`` costs host time on every call), else
+    ``torch.cuda.device(device)``."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

@@ -3,9 +3,12 @@
 Port of the TPU kernel ``weaklysuperviseddl_tpu/ops/pallas_cc.py::_cc_kernel``
 (``pallas_label_components_batch``): [B,H,W] binary masks → int32 labels, each
 the linear index of its 8-connected component's smallest pixel, -1 for
-background. The CUDA kernel is a block-based union-find (see the note at the
-top of ``csrc/cc.cu``); it always computes the true fixed point, where the JAX
-functions stop after ``max_iters`` rounds.
+background. The CUDA kernel is a union-find over 2x2 pixel blocks (see the note
+at the top of ``csrc/cc.cu``) in one of two plans, chosen by shape before the
+launch (``plan_for``): ``"image"``, one block an image with the whole image's
+union-find in shared memory, where its nodes fit; else ``"tiles"``, a
+block-based union-find in three launches. Both always compute the true fixed
+point, where the JAX functions stop after ``max_iters`` rounds.
 
 The kernel is built with ``nvcc`` at first use (``ops/build.py``) and loaded
 with ``ctypes``. The plain PyTorch version of the same function is
@@ -18,11 +21,28 @@ import ctypes
 
 import torch
 
-from weaklysuperviseddl_tpu_torch.ops.build import build
+from weaklysuperviseddl_tpu_torch.ops.build import build, launch_device
 
 SOURCE = "cc.cu"
+PLANS = ("image", "tiles")          # csrc/cc.cu's PLAN_IMAGE and PLAN_TILES
+SMEM_LIMIT = 232448                 # dynamic shared memory one block may opt into (sm_90)
+LINK_BUFFERS = 4 * 64 * 32          # csrc/cc.cu: LINKS ints for each of a block's 32 warps
 
 _lib = None
+
+
+def image_plan_bytes(H: int, W: int) -> int:
+    """Shared bytes the "image" plan takes for an H x W image: five bit
+    planes of 32-node words over the 2x2 nodes, an int32 a node (and one of
+    padding every 32), and the warps' link buffers."""
+    rows, R = -(-H // 2), -(-W // 2)
+    return 5 * 4 * rows * -(-R // 32) + 4 * (rows * R + rows * R // 32) + LINK_BUFFERS
+
+
+def plan_for(H: int, W: int) -> str:
+    """The plan an H x W image takes: "image" where its union-find fits one
+    block's shared memory (up to 432 x 432), else "tiles"."""
+    return "image" if image_plan_bytes(H, W) <= SMEM_LIMIT else "tiles"
 
 
 def _load():
@@ -30,7 +50,7 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build(SOURCE)))
         lib.wsdl_cc_label.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.wsdl_cc_label.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -54,14 +74,18 @@ def label_components_cuda(masks: torch.Tensor) -> torch.Tensor:
     labels = torch.empty((B, H, W), dtype=torch.int32, device=masks.device)
     if labels.numel() == 0:
         return labels
+    plan = plan_for(H, W)
     lib = _load()
     stream = torch.cuda.current_stream(masks.device).cuda_stream
-    with torch.cuda.device(masks.device):
-        err = lib.wsdl_cc_label(masks.data_ptr(), labels.data_ptr(), B, H, W, stream)
+    with launch_device(masks.device):
+        err = lib.wsdl_cc_label(masks.data_ptr(), labels.data_ptr(), B, H, W, PLANS.index(plan),
+                                stream)
     if err != 0:
         raise RuntimeError(f"cc_label launch failed with cudaError {err}")
     label_components_cuda.launches += 1
+    label_components_cuda.plan_launches[plan] += 1
     return labels
 
 
 label_components_cuda.launches = 0  # launches of the kernel since the last reset
+label_components_cuda.plan_launches = dict.fromkeys(PLANS, 0)  # the same, by plan

@@ -22,7 +22,7 @@ import functools
 import torch
 
 from weaklysuperviseddl_tpu_torch.losses.window import _window_terms, window_offsets
-from weaklysuperviseddl_tpu_torch.ops.build import build
+from weaklysuperviseddl_tpu_torch.ops.build import build, launch_device
 
 SOURCE = "window.cu"
 MAX_WINDOW = 7       # windows 3, 5 and 7
@@ -109,6 +109,13 @@ def spatial_table(window_size: int, sigma_space):
     return table
 
 
+@functools.lru_cache(maxsize=16)
+def _one(device):
+    """A float32 1 on ``device``, made once: the gradient kernel's scale
+    when the caller gives none (the kernel only reads it)."""
+    return torch.ones((), dtype=torch.float32, device=device)
+
+
 def window_sum_cuda(probs, images, sigma_color, sigma_space, window_size):
     """The sum kernel: probs [B,H,W,C] and images [B,H,W,3], contiguous
     float32 CUDA tensors on one device → a 0-dim tensor, launched on the
@@ -125,7 +132,7 @@ def window_sum_cuda(probs, images, sigma_color, sigma_space, window_size):
     spatial = spatial_table(window_size, sigma_space)
     lib = _load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    with launch_device(dev):
         err = lib.wsdl_window_sum(probs.data_ptr(), images.data_ptr(), partials.data_ptr(),
                                   out.data_ptr(), B, H, W, C, window_size,
                                   1.0 / (2.0 * sigma_color ** 2), ctypes.addressof(spatial),
@@ -148,7 +155,7 @@ def window_sum_grad_cuda(probs, images, sigma_color, sigma_space, window_size, s
     B, H, W, C = probs.shape
     dev = probs.device
     if scale is None:
-        scale = torch.ones((), dtype=torch.float32, device=dev)
+        scale = _one(dev)
     if scale.numel() != 1 or scale.device != dev or scale.dtype != torch.float32:
         raise ValueError("scale must be one float32 value on the device of probs")
     scale = scale.contiguous()
@@ -158,7 +165,7 @@ def window_sum_grad_cuda(probs, images, sigma_color, sigma_space, window_size, s
     spatial = spatial_table(window_size, sigma_space)
     lib = _load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    with launch_device(dev):
         err = lib.wsdl_window_sum_grad(probs.data_ptr(), images.data_ptr(), scale.data_ptr(),
                                        grad.data_ptr(), B, H, W, C, window_size,
                                        1.0 / (2.0 * sigma_color ** 2), ctypes.addressof(spatial),
