@@ -80,8 +80,9 @@ Phases, one JSON line each:
                activations and gradients on synthetic pets) and at a ragged
                [2,130,7,9] (atol 1e-5); then the path: layercam(fusion="pallas")
                against fusion="xla" at 224², batch 32 (atol 1e-5), the kernel's
-               count reset just before and read just after. Times beside the
-               bound.
+               count reset just before and read just after. Each shape's
+               cluster size (CTAs an image) and the clusters the card holds at
+               once; times and host time beside the bound.
  10. weakly_crf - the CRF pseudo-mask path through
                run_weakly_supervised_alternating at full width: as weakly, with
                mask.use_crf (the reference's parameters: subsampled, stride 2, 5
@@ -107,7 +108,8 @@ Phases, one JSON line each:
 Then the script's seconds by phase, the card's name and power limit, the
 kernels line (each kernel's ``ms`` is the CUDA-event time of one call,
 ``back_to_back_ms`` the same over calls in a row, ``device_ms`` the summed
-kernel time per call from a torch.profiler trace; the crf and refine phase
+kernel time per call from a torch.profiler trace, ``host_ms`` the wrapper's
+host time per call over calls in a row; the crf and refine phase
 lines add ``bound_share``, bound_ms / ms), and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: no result is
 printed. Exits non-zero without a CUDA device.
@@ -158,28 +160,33 @@ def cuda_ms(fn, runs: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, runs: int = 10, warmup: int = 2):
+def device_ms(fn, runs: int = 10, warmup: int = 2, traces: int = 3):
     """Device time per call of what ``fn`` runs on the card, from a
     torch.profiler CUDA trace: (summed kernel ms, {kernel name: ms}), or
-    (None, {}) if the trace holds no device time. Unlike cuda_ms it leaves out
-    the gaps between a call's launches and the host's time before the first."""
+    (None, {}) if none of ``traces`` traces in a row holds device time (a
+    trace of a few short kernels now and then comes back empty on the card).
+    Unlike cuda_ms it leaves out the gaps between a call's launches and the
+    host's time before the first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            by_name[e.key] = us / runs / 1e3
+    for _ in range(traces):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us > 0:
+                by_name[e.key] = us / runs / 1e3
+        if by_name:
+            break
     return (sum(by_name.values()) if by_name else None), by_name
 
 
@@ -831,6 +838,10 @@ def phase_refine():
         "device_ms_v2_aff": plan_device_ms["ncut_4x256_20_steps"]["v2_aff"],
         "back_to_back_ms_v2_aff": kernel_ms(lambda: refine_cuda(S, x, masks, plan="v2_aff"),
                                             runs=10)["back_to_back_ms"],
+        # the wrapper's host time per call (40 launches a call: 10 calls stay
+        # inside the launch queue)
+        "host_ms": host_ms(lambda: refine_cuda(S, x, masks), runs=10),
+        "host_ms_v2_aff": host_ms(lambda: refine_cuda(S, x, masks, plan="v2_aff"), runs=10),
         "plain_ms": cuda_ms(lambda: refine_plain(S, x, masks), runs=5, warmup=1),
         "bound_ms": bound_ms, "bound_by": bound_by, "gflop": ops / 1e9,
         "ms_at_0_and_10_steps": by_steps,
@@ -1415,17 +1426,9 @@ def phase_crf():
     shape = [32, fq.shape[1], fk.shape[1], 5, 2]
     bound_ms, bound_by = roofline(*bilateral_work(*shape))
     norm_v = torch.ones_like(v[..., :1])
-    # the host's part of a call: from the wrapper's entry to the launch's return
-    host_ms = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        gaussian_filter_cuda(fq, fk, v)
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
     timing = {
         **kernel_ms(lambda: gaussian_filter_cuda(fq, fk, v), runs=10, warmup=2),
-        "host_call_ms": statistics.median(host_ms),
+        "host_ms": host_ms(lambda: gaussian_filter_cuda(fq, fk, v), runs=10),
         "back_to_back_ms_under_profiler": events_under_profiler_ms(
             lambda: gaussian_filter_cuda(fq, fk, v)),
         "ms_C1": kernel_ms(lambda: gaussian_filter_cuda(fq, fk, norm_v), runs=10, warmup=2)["ms"],
@@ -1453,29 +1456,43 @@ def full_width_classifier(seed: int):
     return model.cuda().eval()
 
 
-def phase_cam_fusion():
+def cam_fusion_inputs():
+    """The full-width classifier (seed 0), 32 synthetic pets at 224² and
+    their labels, and the classifier's own layer3 and layer4 activations and
+    gradients, [32,1024,14,14] and [32,2048,14,14], as layercam takes them
+    and ops/cam_fusion.cam_fusion hands them to the kernel (contiguous:
+    cuDNN may return channels-last memory): (model, x, cls, acts, grads)."""
     import torch
 
-    from weaklysuperviseddl_tpu_torch.cam.layercam import layercam
     from weaklysuperviseddl_tpu_torch.data.preprocess import preprocess_batch
     from weaklysuperviseddl_tpu_torch.data.synthetic import synthetic_pet_arrays
-    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import cam_fusion_cuda, cam_fusion_plain
 
     model = full_width_classifier(0)
     images, labels, _ = synthetic_pet_arrays(32, image_size=224, seed=8)
     x, _ = preprocess_batch(torch.from_numpy((images * 255).astype(np.uint8)).cuda(), None,
                             size=224)
     cls = torch.from_numpy(labels).cuda()
-    # the classifier's own activations and gradients, as layercam takes them
     xi = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
     logits, feats = model.features(xi)
     acts = [feats["layer3"], feats["layer4"]]
     grads = torch.autograd.grad(logits.gather(1, cls.long().view(-1, 1)).sum(), acts)
-    # as ops/cam_fusion.cam_fusion hands them to the kernel: cuDNN may return
-    # the activations in channels-last memory
-    acts = [a.detach().contiguous() for a in acts]
-    grads = [g.contiguous() for g in grads]
+    return (model, x, cls, [a.detach().contiguous() for a in acts],
+            [g.contiguous() for g in grads])
 
+
+def phase_cam_fusion():
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.cam.layercam import layercam
+    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import (
+        cam_fusion_cuda,
+        cam_fusion_plain,
+        cluster_size,
+        max_active_clusters,
+        sm_count,
+    )
+
+    model, x, cls, acts, grads = cam_fusion_inputs()
     rng = np.random.default_rng(4)
     ragged = [torch.from_numpy(rng.standard_normal((2, 130, 7, 9)).astype(np.float32)).cuda()
               for _ in range(2)]
@@ -1489,16 +1506,23 @@ def phase_cam_fusion():
         err = float((got - want).abs().max())
         check(err <= 1e-5, f"cam_fusion differs from plain at {name} {tuple(a.shape)}: {err}")
         check(torch.equal(again, got), f"cam_fusion differs between launches at {name}")
-        cases.append({"name": name, "shape": list(a.shape), "max_abs_err": err})
+        B, C, h, w = a.shape
+        # the CTAs of an image's cluster, and how many such clusters the card
+        # holds at once (the occupancy query the kernel runs before its first
+        # launch of a shape)
+        S = cluster_size(B, C, sm_count(a.device))
+        clusters = max_active_clusters(C, h * w, S, (h * w) % 4 == 0)
+        cases.append({"name": name, "shape": list(a.shape), "max_abs_err": err,
+                      "cluster_size": S, "max_active_clusters": clusters})
         if name != "ragged":
             max_err = max(max_err, err)
-            B, C, h, w = a.shape
             # bytes: act and grad read once, the CAM written once; operations:
             # a multiply, a max and an add per element
             bound_ms, bound_by = roofline(4 * B * h * w * (2 * C + 1), 3 * B * C * h * w)
             by_shape[name] = {
-                "shape": list(a.shape),
+                "shape": list(a.shape), "cluster_size": S,
                 **kernel_ms(lambda: cam_fusion_cuda(a, g), runs=50, warmup=5),
+                "host_ms": host_ms(lambda: cam_fusion_cuda(a, g), runs=50),
                 "plain_ms": cuda_ms(lambda: cam_fusion_plain(a, g), runs=50, warmup=5),
                 "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1694,8 +1718,8 @@ def main() -> int:
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     def timed_fields(t):
-        return {k: t[k] for k in ("ms", "back_to_back_ms", "device_ms", "plain_ms", "bound_ms",
-                                  "bound_by")}
+        return {k: t[k] for k in ("ms", "back_to_back_ms", "device_ms", "host_ms", "plain_ms",
+                                  "bound_ms", "bound_by")}
 
     # cc: on the masks the serving path gave it, the served argmax [64,256,256]
     shape = tuple(served_masks.shape)
@@ -1707,6 +1731,7 @@ def main() -> int:
         **by_path("cc_label", serve=launches, weakly=weakly_launches["cc_label"]),
         "max_abs_err": max_err,
         **kernel_ms(lambda: label_components_cuda(served_masks), runs=25, warmup=3),
+        "host_ms": host_ms(lambda: label_components_cuda(served_masks), runs=25),
         "plain_ms": cuda_ms(lambda: label_components(served_masks), runs=20, warmup=1),
         "bound_ms": cc_bound_ms(shape),
         "bound_by": "bytes",
@@ -1738,6 +1763,7 @@ def main() -> int:
         "ms": refine_timing["ms_v2_aff"],
         "back_to_back_ms": refine_timing["back_to_back_ms_v2_aff"],
         "device_ms": refine_timing["device_ms_v2_aff"],
+        "host_ms": refine_timing["host_ms_v2_aff"],
         "plain_ms": refine_timing["plain_ms"],
         "bound_ms": refine_timing["bound_ms"],  # the function is K1's
         "bound_by": refine_timing["bound_by"],
@@ -1794,6 +1820,7 @@ def main() -> int:
         **timed_fields(fusion),
         "library_ms": None,  # no single PyTorch call computes the fusion
         "shape": fusion["shape"],  # layer4; layer3 in the cam_fusion line
+        "cluster_size": fusion["cluster_size"],  # CTAs an image, one cluster each
     }]}
     emit("wall", seconds_by_phase=seconds, seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

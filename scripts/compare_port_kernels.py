@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times the PyTorch port's bilateral-filter (K3), refinement (K1),
-window-loss (K4) and connected-components (K2) kernels of this checkout
-against those of an earlier checkout, in turns on one GPU.
+window-loss (K4), connected-components (K2) and LayerCAM-fusion (K5)
+kernels of this checkout against those of an earlier checkout, in turns on
+one GPU.
 
     python3 scripts/compare_port_kernels.py --baseline DIR [--cases REGEX] [--out FILE]
 
@@ -10,12 +11,14 @@ window-loss kernels on (for example ``git archive <commit> | tar -x -C
 DIR``). Each checkout runs in processes of its own, through its own wrappers
 (``ops/bilateral.py::gaussian_filter_cuda``, ``ops/refine.py::refine_cuda``
 with ``plan``, ``ops/window.py::window_sum_cuda`` and
-``window_sum_grad_cuda``, ``ops/cc.py::label_components_cuda``), with its
-kernels built from its own ``csrc/`` by its own ``ops/build.py``. The inputs
-are made once, by this checkout, as ``chip_smoke.py``'s crf, refine, window
-and serve phases make them; K2 runs every family of ``masks/synthetic.py``
-at [64,256,256] (the served batch) and [32,224,224] (the pseudo-mask batch),
-and the serve phase's argmax masks. ``--cases`` keeps the cases whose name
+``window_sum_grad_cuda``, ``ops/cc.py::label_components_cuda``,
+``ops/cam_fusion.py::cam_fusion_cuda``), with its kernels built from its own
+``csrc/`` by its own ``ops/build.py``. The inputs are made once, by this
+checkout, as ``chip_smoke.py``'s crf, refine, window, serve and cam_fusion
+phases make them; K2 runs every family of ``masks/synthetic.py`` at
+[64,256,256] (the served batch) and [32,224,224] (the pseudo-mask batch),
+and the serve phase's argmax masks; K5 the full-width classifier's layer3
+and layer4 activations and gradients at 224², batch 32. ``--cases`` keeps the cases whose name
 the regular expression matches. The runs go baseline, current, current,
 baseline: a case's ``ms`` is the mean of its two CUDA-event medians
 (``chip_smoke.py::cuda_ms``), ``ms_runs`` both, and ``back_to_back_ms``,
@@ -24,7 +27,9 @@ baseline: a case's ``ms`` is the mean of its two CUDA-event medians
 ``chip_smoke.py::host_ms``) come from the second run. The baseline's outputs
 are held to the current ones: bilateral within 1e-4 relative, refinement
 masks agreeing on >= 0.9999 of pixels with the loss within 1e-4, window
-losses within 1e-5 of the largest value, labels equal. Prints one JSON line
+losses within 1e-5 of the largest value (``max_rel_diff_to_largest``, and
+whether the bits are equal), labels equal, LayerCAM fusions within 1e-5
+absolute. Prints one JSON line
 per case (the first holds the card, torch and each checkout's ``-Xptxas -v``
 summary), and writes them to FILE too if given.
 """
@@ -42,7 +47,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 WORK = ROOT / "weaklysuperviseddl_tpu_torch" / "build" / "compare"  # in .gitignore
-SOURCES = ("bilateral.cu", "refine.cu", "window.cu", "cc.cu")
+SOURCES = ("bilateral.cu", "refine.cu", "window.cu", "cc.cu", "cam_fusion.cu")
 CC_SHAPES = {"64x256": (64, 256, 256), "32x224": (32, 224, 224)}
 REFINE_CONFIGS = (  # name, inputs, keyword arguments, plans
     ("ncut_4x256_20_steps", "b4", {}, ("v1sym", "v1", "v2_aff")),
@@ -63,7 +68,8 @@ def smoke():
 
 
 def make_inputs(path: Path) -> None:
-    """The crf, refine, window and cc phases' inputs, saved on the host."""
+    """The crf, refine, window, cc and cam_fusion phases' inputs, saved on
+    the host."""
     import numpy as np
     import torch
 
@@ -90,9 +96,13 @@ def make_inputs(path: Path) -> None:
     served, rng, _ = cs.serve_model()
     cs._requests(rng, 2, (300, 400))  # the serve phase's card-against-CPU requests come first
     masks["cc_served_64x256"] = (cs.served_argmax(served, rng),)
+    _, _, _, acts, grads = cs.cam_fusion_inputs()
+    fusion = {f"cam_fusion_{layer}": (a, g)
+              for layer, a, g in zip(("layer3", "layer4"), acts, grads)}
     cpu = lambda ts: tuple(t.cpu() for t in ts)  # noqa: E731
     torch.save({"bilateral": cpu((fq, fk, v)), "b4": cpu(b4), "b8": cpu(b8),
-                "window": cpu((probs, x)), **{k: cpu(m) for k, m in masks.items()}}, path)
+                "window": cpu((probs, x)), **{k: cpu(m) for k, m in masks.items()},
+                **{k: cpu(t) for k, t in fusion.items()}}, path)
 
 
 def worker(checkout: Path, inputs: Path, result: Path, pattern: str) -> None:
@@ -104,6 +114,7 @@ def worker(checkout: Path, inputs: Path, result: Path, pattern: str) -> None:
     import weaklysuperviseddl_tpu_torch
     from weaklysuperviseddl_tpu_torch.ops import build
     from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cuda
+    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import cam_fusion_cuda
     from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
     from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
     from weaklysuperviseddl_tpu_torch.ops.window import window_sum_cuda, window_sum_grad_cuda
@@ -134,6 +145,8 @@ def worker(checkout: Path, inputs: Path, result: Path, pattern: str) -> None:
     for name, tensors in data.items():
         if name.startswith("cc_"):
             cases[name] = (lambda masks=tensors[0]: label_components_cuda(masks), 25)
+        if name.startswith("cam_fusion_"):
+            cases[name] = (lambda ts=tensors: cam_fusion_cuda(*ts), 50)
 
     outputs, timings = {}, {}
     for name, (fn, runs) in cases.items():
@@ -152,6 +165,8 @@ def worker(checkout: Path, inputs: Path, result: Path, pattern: str) -> None:
 
 def agreement(name: str, got, want) -> dict:
     """The baseline's output against the current one, and whether it holds."""
+    import torch
+
     if name.startswith("refine"):
         masks = float((got[0] == want[0]).float().mean())
         loss = abs(float(got[1]) - float(want[1])) / abs(float(want[1]))
@@ -163,8 +178,12 @@ def agreement(name: str, got, want) -> dict:
     if name.startswith("bilateral"):
         rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
         return {"max_rel_diff": rel, "ok": rel <= 1e-4}
+    if name.startswith("cam_fusion"):
+        diff = float((got - want).abs().max())
+        return {"max_abs_diff": diff, "ok": diff <= 1e-5}
     rel = float((got - want).abs().max() / want.abs().max())
-    return {"max_rel_diff_to_largest": rel, "ok": rel <= 1e-5}
+    return {"max_rel_diff_to_largest": rel, "bits_equal": bool(torch.equal(got, want)),
+            "ok": rel <= 1e-5}
 
 
 def main() -> int:

@@ -417,21 +417,50 @@ def test_crf_masks_on_card_match_cpu(cuda):
 
 
 @pytest.mark.parametrize("shape", [(3, 160, 14, 14), (2, 130, 7, 9), (4, 64, 56, 56),
-                                   (1, 3, 200, 200)])
+                                   (1, 3, 200, 200), (1, 512, 14, 14), (32, 2048, 14, 14),
+                                   (40, 1024, 14, 14)])
 def test_cam_fusion_kernel_equals_plain(cuda, shape):
-    """atol 1e-5: channel sums in another order, then a min-max to [0,1]."""
-    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import cam_fusion_cuda, cam_fusion_plain
+    """atol 1e-5: channel sums in another order, then a min-max to [0,1].
+    The shapes take every cluster size: 8 CTAs an image at B = 1 to 3, 4 at
+    B = 32 (the path's), and at B = 40 (160 CTAs: more than one wave at one
+    CTA an SM); 7x9 takes the scalar loads. One launch a call, the card able
+    to hold such clusters, and two launches bit-identical."""
+    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import (
+        cam_fusion_cuda,
+        cam_fusion_plain,
+        cluster_size,
+        max_active_clusters,
+        sm_count,
+    )
 
+    B, C, h, w = shape
     rng = np.random.default_rng(2)
     act, grad = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
                  for _ in range(2))
+    S = cluster_size(B, C, sm_count(act.device))
+    assert max_active_clusters(C, h * w, S, (h * w) % 4 == 0) >= 1
+    before = cam_fusion_cuda.launches
     got = cam_fusion_cuda(act, grad)
+    assert cam_fusion_cuda.launches == before + 1
     again = cam_fusion_cuda(act, grad)
     want = cam_fusion_plain(act, grad)
     torch.cuda.synchronize()
-    assert got.shape == (shape[0], *shape[2:])
+    assert got.shape == (B, h, w)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     assert torch.equal(again, got)
+
+
+def test_cam_fusion_raises_when_clusters_cannot_launch(cuda, monkeypatch):
+    """A cluster size the kernel does not take is an error, not a fallback to
+    another plan; nothing is counted."""
+    from weaklysuperviseddl_tpu_torch.ops import cam_fusion as module
+
+    act = torch.rand((2, 16, 14, 14), device=cuda)
+    monkeypatch.setattr(module, "cluster_size", lambda B, C, sms: 16)
+    before = module.cam_fusion_cuda.launches
+    with pytest.raises(RuntimeError, match="clusters of 16"):
+        module.cam_fusion_cuda(act, act)
+    assert module.cam_fusion_cuda.launches == before
 
 
 def test_layercam_pallas_fusion_launches_the_kernel(cuda):

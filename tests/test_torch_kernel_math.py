@@ -12,20 +12,34 @@ float64 with the plain versions (the kernels themselves run only on the card):
   pixel blocks, links them by the four patterns of its neighbour nodes,
   skips the links its neighbours already imply, and labels each component by
   the smallest first pixel of its nodes: a numpy model of that, held to the
-  JAX package's XLA labelling.
+  JAX package's XLA labelling;
+* the window-sum kernel (``csrc/window.cu``'s forward) stages each tile over
+  a halo that holds reflect's values, keeps one affinity per pair of
+  positions and takes every pixel's whole sum from the centre role: a numpy
+  model of that tiling and of the pair table's indexing, held to the plain
+  window sum;
+* the LayerCAM fusion (``csrc/cam_fusion.cu``) splits an image's channels
+  over a cluster of S CTAs, sums the slices in rank order, and takes the
+  min and max across the cluster: a numpy model of that split, held to the
+  JAX package's Pallas kernel in interpret mode.
 """
 
+import functools
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from weaklysuperviseddl_tpu.masks.components import label_components as jax_label_components
+from weaklysuperviseddl_tpu.ops.pallas_cam import fused_cam_fusion
 from weaklysuperviseddl_tpu_torch.losses.window import affinity_exponent, window_offsets
 from weaklysuperviseddl_tpu_torch.masks import synthetic
 from weaklysuperviseddl_tpu_torch.ops.bilateral import EXP2_SCALE, gaussian_filter_plain_cross
+from weaklysuperviseddl_tpu_torch.ops.cam_fusion import cluster_size
 from weaklysuperviseddl_tpu_torch.ops.cc import image_plan_bytes, plan_for
 from weaklysuperviseddl_tpu_torch.ops.refine import TILE
-from weaklysuperviseddl_tpu_torch.ops.window import window_sum_grad_plain
+from weaklysuperviseddl_tpu_torch.ops.window import window_sum_grad_plain, window_sum_plain
 
 
 def _edge_distance(H, W):
@@ -267,3 +281,172 @@ def test_cc_plan_by_shape(shape, plan):
     chosen while that fits one block's 227 KB of shared memory."""
     assert plan_for(*shape) == plan
     assert image_plan_bytes(256, 256) == 4 * (16384 + 512) + 5 * 4 * 128 * 4 + 8192
+
+
+def _reflect_reach(z, n):
+    """window_common.cuh::reflect_reach: the pixel a halo position holds, -1
+    past reflect's reach."""
+    if z < -(n - 1) or z > 2 * (n - 1):
+        return -1
+    return -z if z < 0 else (2 * (n - 1) - z if z >= n else z)
+
+
+def tiled_window_sum(probs, images, sigma_color, sigma_space, window):
+    """window.cu's forward in numpy: per TILE x TILE tile, the image and
+    probs over a halo of pad pixels that holds reflect's values (zeros past
+    its reach), fill_pairs' table of one affinity per pair of positions
+    (never-written entries NaN, so a read of one shows), and every pixel
+    inside the image summing its window through PairAffinity's indexing
+    (aff_o(u) for o after the centre, the pair (u + o, u) before it)."""
+    B, H, W, C = probs.shape
+    pad, win = window // 2, window
+    K = win * win - 1
+    half = K // 2
+    offsets = [(m // win - pad, m % win - pad) for m in range(win * win) if m != K // 2]
+    inv2sc = 1.0 / (2.0 * sigma_color ** 2)
+
+    def spatial(dy, dx):
+        return 0.0 if sigma_space is None else (dy * dy + dx * dx) / (2.0 * sigma_space ** 2)
+
+    hs, rows, cols = TILE + 2 * pad, TILE + pad, TILE + 2 * pad
+    total = 0.0
+    for b, ty0, tx0 in np.ndindex(B, -(-H // TILE), -(-W // TILE)):
+        ty0, tx0 = ty0 * TILE, tx0 * TILE
+        ys = [_reflect_reach(ty0 - pad + i, H) for i in range(hs)]
+        xs = [_reflect_reach(tx0 - pad + j, W) for j in range(hs)]
+        img, t = np.zeros((hs, hs, 3)), np.zeros((hs, hs, C))
+        for i, j in np.ndindex(hs, hs):
+            if ys[i] >= 0 and xs[j] >= 0:
+                img[i, j], t[i, j] = images[b, ys[i], xs[j]], probs[b, ys[i], xs[j]]
+        pairs = np.full((half, rows, cols), np.nan)
+        for h in range(half):
+            dy, dx = offsets[half + h]
+            for ry, rx in np.ndindex(rows, cols):
+                py, px = ry - pad, rx - pad
+                ny, nx = py + dy, px + dx
+                if (py >= 0 and 0 <= px < TILE) or (0 <= ny < TILE and 0 <= nx < TILE):
+                    cd = ((img[ry, rx] - img[ry + dy, rx + dx]) ** 2).sum()
+                    pairs[h, ry, rx] = np.exp(-cd * inv2sc - spatial(dy, dx))
+        for uy, ux in np.ndindex(TILE, TILE):
+            if ty0 + uy >= H or tx0 + ux >= W:
+                continue
+            sy, sx = uy + pad, ux + pad
+            for k, (dy, dx) in enumerate(offsets):
+                if k >= half:
+                    a = pairs[k - half, uy + pad, ux + pad]
+                else:
+                    a = pairs[K - 1 - k - half, uy + dy + pad, ux + dx + pad]
+                d = t[sy, sx] - t[sy + dy, sx + dx]
+                total += a * (d * d).sum()
+    return total
+
+
+@pytest.mark.parametrize("H,W,C", [(11, 13, 1), (9, 32, 2), (40, 35, 5), (64, 64, 6),
+                                   (40, 35, 3), (11, 13, 4)])
+@pytest.mark.parametrize("sigma_space", [None, 5.0])
+@pytest.mark.parametrize("window", [3, 5, 7])
+def test_tiled_pair_table_window_sum_equals_plain(window, sigma_space, H, W, C):
+    """float64: the forward kernel's tiling, reflect-valued halo and pair
+    table give the plain window sum within 1e-12 relative, edges and tiny
+    images included (11x13 and 9x32 have no pixel more than pad from every
+    edge at window 7, and halos that reach past reflect's range), for probs
+    that do not sum to 1; no unwritten table entry is read."""
+    rng = np.random.default_rng(window * 100 + H * W + C + (sigma_space is None))
+    probs = rng.uniform(-1, 2, (1, H, W, C))
+    images = rng.uniform(0, 1, (1, H, W, 3))
+    got = tiled_window_sum(probs, images, 0.3, sigma_space, window)
+    want = float(window_sum_plain(torch.from_numpy(probs), torch.from_numpy(images), 0.3,
+                                  sigma_space, window))
+    assert np.isfinite(got)
+    assert got == pytest.approx(want, rel=1e-12)
+
+
+CAM_THREADS = 512  # cam_fusion.cu's block
+
+
+def cluster_cam_fusion(act, grad, S):
+    """cam_fusion.cu in numpy (float64): per image, CTA r of the cluster sums
+    the channels [r·CS, (r+1)·CS), CS = ceil(C/S), in G channel groups whose
+    sums are added in group order; then CTA r takes the r-th share of the
+    pixels, adds the S partials in rank order and applies the relu; the
+    image's min and max are the CTAs' minima and maxima combined. Also
+    counts how often each channel is read and each pixel written (each
+    must be once). act, grad [B,C,h,w]."""
+    B, C, h, w = act.shape
+    hw = h * w
+    vec = 4 if hw % 4 == 0 else 1
+    CS = -(-C // S)
+    PT = min(CAM_THREADS, hw // vec)
+    G = max(1, min(CAM_THREADS // PT, CS))
+    share = -(-hw // S)
+    out = np.full((B, hw), np.nan)
+    reads, writes = np.zeros((B, C), int), np.zeros((B, hw), int)
+    prod = np.maximum(act.reshape(B, C, hw) * grad.reshape(B, C, hw), 0.0)
+    for b in range(B):
+        partial = np.zeros((S, hw))
+        for r in range(S):
+            groups = np.zeros((G, hw))
+            for g in range(G):
+                for c in range(r * CS + g, min(C, (r + 1) * CS), G):
+                    groups[g] += prod[b, c]
+                    reads[b, c] += 1
+            partial[r] = groups.sum(0)
+        cam, lows, highs = np.zeros(hw), [], []
+        for r in range(S):
+            p0 = min(hw, r * share)
+            p1 = min(hw, p0 + share)
+            mine = np.maximum(partial[:, p0:p1].sum(0), 0.0)
+            cam[p0:p1] = mine
+            lows.append(mine.min() if p1 > p0 else np.inf)
+            highs.append(mine.max() if p1 > p0 else -np.inf)
+        lo, hi = min(lows), max(highs)
+        for r in range(S):
+            p0 = min(hw, r * share)
+            p1 = min(hw, p0 + share)
+            out[b, p0:p1] = (cam[p0:p1] - lo) / (hi - lo + 1e-8)
+            writes[b, p0:p1] += 1
+    return out.reshape(B, h, w), reads, writes
+
+
+@functools.lru_cache(maxsize=8)
+def _cam_case(C, h, w):
+    """Inputs [2,C,h,w] (float32, seeded) and the JAX package's Pallas
+    kernel on them in interpret mode (it takes NHWC)."""
+    rng = np.random.default_rng(C + h * w)
+    act, grad = (rng.standard_normal((2, C, h, w)).astype(np.float32) for _ in range(2))
+    want = fused_cam_fusion(jnp.asarray(act.transpose(0, 2, 3, 1)),
+                            jnp.asarray(grad.transpose(0, 2, 3, 1)), interpret=True)
+    return act, grad, np.asarray(want)
+
+
+@pytest.mark.parametrize("h,w", [(7, 9), (14, 14)])
+@pytest.mark.parametrize("C", [1, 130, 1024])
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+def test_cluster_split_cam_fusion_equals_jax(S, C, h, w):
+    """The split over S CTAs, summed in rank order with the cluster-wide min
+    and max, reads every channel once, writes every pixel once, equals the
+    unsplit fusion in float64 within 1e-12, and the TPU kernel in interpret
+    mode within 1e-5, the kernel's tolerance (the TPU kernel's float32 sums
+    of 1024 channels are 1.3e-6 off float64). h·w = 63 takes the scalar
+    loads, 196 the float4 ones; at C = 1 and S > 1 most CTAs have no
+    channel."""
+    act, grad, want = _cam_case(C, h, w)
+    a64, g64 = act.astype(np.float64), grad.astype(np.float64)
+    got, reads, writes = cluster_cam_fusion(a64, g64, S)
+    assert (reads == 1).all() and (writes == 1).all()
+    cam = np.maximum(np.maximum(a64 * g64, 0.0).sum(1), 0.0)
+    cam -= cam.min(axis=(1, 2), keepdims=True)
+    whole = cam / (cam.max(axis=(1, 2), keepdims=True) + 1e-8)
+    np.testing.assert_allclose(got, whole, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,C,sms,S", [(32, 2048, 132, 4), (32, 1024, 132, 4), (40, 1024, 132, 4),
+                                       (1, 130, 132, 8), (2, 130, 132, 8), (64, 2048, 132, 2),
+                                       (200, 2048, 132, 1), (1, 1, 132, 1), (1, 3, 132, 2),
+                                       (32, 2048, 114, 4)])
+def test_cluster_size_fills_about_one_wave(B, C, sms, S):
+    """The wrapper's choice of CTAs an image: B·S nearest to one wave of the
+    card's SMs (132 on the H100 SXM, 114 on the PCIe card), a power of two
+    up to the portable 8, never more than the channels."""
+    assert cluster_size(B, C, sms) == S

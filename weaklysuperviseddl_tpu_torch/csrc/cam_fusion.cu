@@ -9,33 +9,70 @@
 // Replaces the TPU kernel ops/pallas_cam.py::_cam_kernel of the JAX package
 // (fused_cam_fusion), which takes NHWC tiles with the channels on the lanes.
 //
-// Design. One block per image. Threads run over pixels, so that at each
-// channel neighbouring threads read neighbouring addresses (the channel stride
-// is h*w); the block's threads are also split into G channel groups, each
-// summing every G-th channel of its pixels into shared memory. The groups'
-// sums are then added in a fixed order (two launches give the same bits), a
-// block-wide min and max follow, and each pixel is written once.
+// Design. One thread-block cluster of S CTAs per image, S chosen by the
+// wrapper so that B*S CTAs fill about one wave of the card's SMs (4 at batch
+// 32, at most 8). CTA r of a cluster streams channels [r*CS, (r+1)*CS) of its
+// image, CS = ceil(C/S), a contiguous slice of act and grad. Threads run over
+// pixel vectors (float4 where h*w % 4 == 0 and the pointers are 16-byte
+// aligned, so that a vector never straddles two channels; one float
+// otherwise), neighbouring threads on neighbouring addresses, and are split
+// into G channel groups, each summing every G-th channel of the slice for its
+// pixels with UNROLL channels' loads in flight. The groups' sums are added in
+// group order into the CTA's partial in shared memory. After cluster.sync(),
+// CTA r takes the r-th 1/S of the image's pixels, adds the S CTAs' partials
+// in rank order through distributed shared memory (map_shared_rank) and
+// applies the relu; the CTAs' minima and maxima are exchanged the same way,
+// and each pixel is written once. Every sum runs in a fixed order: two
+// launches give the same bits.
 //
 // Bound. Bytes: act and grad read once and the CAM written once,
-// (2*C + 1)*h*w*4 bytes per image (51 MB at [32,1024,14,14], layer3 of the
-// full-width classifier). One block per image leaves most of the card idle
-// at batch 32; the design keeps every byte read once and coalesced.
+// (2*C + 1)*h*w*4 bytes per image: 51 MB at [32,1024,14,14] (layer3 of the
+// full-width classifier, 15.3 us at 3.35 TB/s) and 103 MB at [32,2048,14,14]
+// (layer4, 30.7 us); 3 operations an element are far below the card's rate.
+// What the design does about it: one block an image left 100 of the 132 SMs
+// idle at batch 32, each busy SM streaming 3.2 MB alone; S CTAs an image put
+// B*S SMs on the stream, with 16-byte loads and 2*UNROLL of them a thread in
+// flight, and every byte is read once.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// and loaded with ctypes (ops/cam_fusion.py). The entry point returns the CUDA
-// error of its launch, 0 on success.
+// and loaded with ctypes (ops/cam_fusion.py). The entry points return a CUDA
+// error code (0 on success) or a count.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <algorithm>
+#include <atomic>
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int MAX_THREADS = 1024;
-constexpr int PIXEL_LANES = 256;             // at most this many threads per channel group
-constexpr int DEFAULT_SMEM = 47 * 1024;      // dynamic bytes that launch without opting in
-                                             // (48 KB less the static arrays below)
+constexpr int THREADS = 512;
+constexpr int UNROLL = 8;                    // channels a thread loads before it adds them
+constexpr int MAX_CLUSTER = 8;               // the portable cluster size
+constexpr int MAX_SMEM = 226 * 1024;         // dynamic bytes: the card's 227 KB for one block
+                                             // less 1 KB for the static arrays below
+
+__device__ __forceinline__ float fuse(float s, float a, float g) { return s + fmaxf(a * g, 0.f); }
+
+__device__ __forceinline__ float4 fuse(float4 s, float4 a, float4 g) {
+  return make_float4(fuse(s.x, a.x, g.x), fuse(s.y, a.y, g.y), fuse(s.z, a.z, g.z),
+                     fuse(s.w, a.w, g.w));
+}
+
+template <int V>
+struct Vec {
+  using T = float;
+  __device__ static T zero() { return 0.f; }
+};
+template <>
+struct Vec<4> {
+  using T = float4;
+  __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+};
 
 __device__ __forceinline__ void warp_min_max(float& lo, float& hi) {
 #pragma unroll
@@ -45,80 +82,196 @@ __device__ __forceinline__ void warp_min_max(float& lo, float& hi) {
   }
 }
 
-// grid (B), block (PT * G): thread t owns the pixels p = t % PT (mod PT) of
-// channel group t / PT. PT is a multiple of 32.
-__global__ void cam_fusion(const float* __restrict__ act, const float* __restrict__ grad,
-                           float* __restrict__ out, int C, int HW, int PT, int G) {
-  extern __shared__ float part[];  // [G][HW]: each group's channel sums
-  __shared__ float wlo[MAX_THREADS / 32], whi[MAX_THREADS / 32];
+// grid (B * S), clusters of S, block THREADS: thread t < PT * G owns the pixel
+// vectors v = t % PT (mod PT) of channel group t / PT. V floats a vector.
+template <int V>
+__global__ void __launch_bounds__(THREADS)
+cam_fusion(const float* __restrict__ act, const float* __restrict__ grad,
+           float* __restrict__ out, int C, int HW, int S, int CS, int PT, int G) {
+  using T = typename Vec<V>::T;
+  extern __shared__ __align__(16) float part[];  // [G][HW]: each group's sums; then the CTA's
+  __shared__ float wlo[THREADS / 32], whi[THREADS / 32];
+  __shared__ float cta_lo, cta_hi, img_lo, img_hi;
+  cg::cluster_group cluster = cg::this_cluster();
   const int t = threadIdx.x;
-  const int g = t / PT;
-  const size_t base = (size_t)blockIdx.x * C * HW;
-  const float* a = act + base;
-  const float* gr = grad + base;
+  const int b = blockIdx.x / S;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int share = (HW + S - 1) / S;  // the pixels this CTA finishes
+  const int p0 = min(HW, rank * share), p1 = min(HW, p0 + share);
+  if (static_cast<int>(cluster.num_blocks()) != S) {  // not launched as clusters of S
+    for (int p = p0 + t; p < p1; p += THREADS) out[static_cast<size_t>(b) * HW + p] = NAN;
+    return;
+  }
 
-  for (int p = t % PT; p < HW; p += PT) {
-    float s = 0.f;
-    for (int c = g; c < C; c += G) {
-      const size_t i = (size_t)c * HW + p;
-      s += fmaxf(a[i] * gr[i], 0.f);
+  // each group's sums over its channels of the slice
+  const int NV = HW / V;  // vectors a channel
+  if (t < PT * G) {
+    const int g = t / PT, c1 = min(C, (rank + 1) * CS);
+    const size_t image = static_cast<size_t>(b) * C * NV;
+    const T* a = reinterpret_cast<const T*>(act) + image;
+    const T* gr = reinterpret_cast<const T*>(grad) + image;
+    for (int v = t % PT; v < NV; v += PT) {
+      // UNROLL channels' loads issued at once, those past the slice as
+      // zeros: adding relu(0 * 0) to a sum of non-negative terms leaves its
+      // bits as they are, so the last round needs no loop of its own
+      T s = Vec<V>::zero();
+      for (int c = rank * CS + g; c < c1; c += UNROLL * G) {
+        T av[UNROLL], gv[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const size_t i = static_cast<size_t>(c + u * G) * NV + v;
+          const bool in = c + u * G < c1;
+          av[u] = in ? a[i] : Vec<V>::zero();
+          gv[u] = in ? gr[i] : Vec<V>::zero();
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) s = fuse(s, av[u], gv[u]);
+      }
+      reinterpret_cast<T*>(part)[g * NV + v] = s;
     }
-    part[g * HW + p] = s;
   }
   __syncthreads();
+  // the groups' sums in group order: the CTA's partial, part[0..HW)
+  for (int p = t; p < HW; p += THREADS) {
+    float s = part[p];
+    for (int k = 1; k < G; ++k) s += part[k * HW + p];
+    part[p] = s;
+  }
+  cluster.sync();  // every CTA's partial is complete
 
-  // the groups' sums in a fixed order; each pixel's column belongs to one thread
+  // this CTA's pixels: the S partials in rank order (no CTA reads another's
+  // pixels of this range, so the result may overwrite the partial), the relu
   float lo = INFINITY, hi = -INFINITY;
-  for (int p = t; p < HW; p += blockDim.x) {
+  for (int p = p0 + t; p < p1; p += THREADS) {
     float s = 0.f;
-    for (int k = 0; k < G; ++k) s += part[k * HW + p];
+    for (int q = 0; q < S; ++q) s += cluster.map_shared_rank(part, q)[p];
     s = fmaxf(s, 0.f);
     part[p] = s;
     lo = fminf(lo, s);
     hi = fmaxf(hi, s);
   }
   warp_min_max(lo, hi);
-  const int warp = t / 32, lane = t % 32, warps = blockDim.x / 32;
+  const int warp = t / 32, lane = t % 32;
   if (lane == 0) {
     wlo[warp] = lo;
     whi[warp] = hi;
   }
   __syncthreads();
   if (warp == 0) {
-    lo = lane < warps ? wlo[lane] : INFINITY;
-    hi = lane < warps ? whi[lane] : -INFINITY;
+    lo = lane < THREADS / 32 ? wlo[lane] : INFINITY;
+    hi = lane < THREADS / 32 ? whi[lane] : -INFINITY;
     warp_min_max(lo, hi);
     if (lane == 0) {
-      wlo[0] = lo;
-      whi[0] = hi;
+      cta_lo = lo;
+      cta_hi = hi;
     }
   }
-  __syncthreads();
-  lo = wlo[0];
-  const float scale = whi[0] - lo + 1e-8f;
-  float* o = out + (size_t)blockIdx.x * HW;
-  for (int p = t; p < HW; p += blockDim.x) o[p] = (part[p] - lo) / scale;
+  cluster.sync();  // every CTA's min and max are written
+  if (warp == 0) {
+    lo = lane < S ? *cluster.map_shared_rank(&cta_lo, lane) : INFINITY;
+    hi = lane < S ? *cluster.map_shared_rank(&cta_hi, lane) : -INFINITY;
+    warp_min_max(lo, hi);
+    if (lane == 0) {
+      img_lo = lo;
+      img_hi = hi;
+    }
+  }
+  cluster.sync();  // read by all: no CTA's shared memory is read after this
+  const float scale = img_hi - img_lo + 1e-8f;
+  for (int p = p0 + t; p < p1; p += THREADS)
+    out[static_cast<size_t>(b) * HW + p] = (part[p] - img_lo) / scale;
 }
+
+// The launch of one call: the kernel for its vector width, the split of the
+// block into pixel lanes and channel groups, and the cluster configuration.
+struct Plan {
+  void (*kernel)(const float*, const float*, float*, int, int, int, int, int, int);
+  int vec, CS, PT, G;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config;
+};
+
+// vec: float4 loads (h*w % 4 == 0 and 16-byte aligned pointers).
+void make_plan(Plan& pl, bool vec, int B, int C, int HW, int S, void* stream) {
+  pl = Plan{};
+  pl.vec = vec ? 4 : 1;
+  pl.kernel = vec ? cam_fusion<4> : cam_fusion<1>;
+  pl.CS = (C + S - 1) / S;
+  pl.PT = std::min(THREADS, HW / pl.vec);
+  const int fit = MAX_SMEM / static_cast<int>(sizeof(float) * HW);
+  pl.G = std::max(1, std::min({THREADS / pl.PT, pl.CS, fit}));
+  pl.attr.id = cudaLaunchAttributeClusterDimension;
+  pl.attr.val.clusterDim.x = S;
+  pl.attr.val.clusterDim.y = 1;
+  pl.attr.val.clusterDim.z = 1;
+  pl.config.gridDim = dim3(static_cast<unsigned>(B) * S);
+  pl.config.blockDim = dim3(THREADS);
+  pl.config.dynamicSmemBytes = sizeof(float) * static_cast<size_t>(pl.G) * HW;
+  pl.config.stream = static_cast<cudaStream_t>(stream);
+  pl.config.attrs = &pl.attr;
+  pl.config.numAttrs = 1;
+}
+
+// The clusters of the plan's shape that the card holds at once (0: it cannot
+// launch them), the kernel's dynamic shared memory first raised to the most
+// any plan takes (the attribute is per kernel and only an upper limit).
+cudaError_t max_active_clusters(const Plan& pl, int* n) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(pl.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(n, pl.kernel, &pl.config);
+}
+
+bool valid(int B, int C, int HW, int S) {
+  return B >= 1 && C >= 1 && HW >= 1 && HW <= MAX_SMEM / static_cast<int>(sizeof(float)) &&
+         S >= 1 && S <= MAX_CLUSTER && static_cast<long long>(B) * S <= 0x7fffffff;
+}
+
+// For each device, vector width and cluster size, the largest dynamic shared
+// memory of a plan found launchable: the occupancy query runs once a shape.
+constexpr int MAX_DEVICES = 16;  // devices past these are queried on every call
+std::atomic<size_t> checked[MAX_DEVICES][2][MAX_CLUSTER + 1];
 
 }  // namespace
 
+// The clusters of S CTAs that the card holds at once for a call at (C, HW),
+// with float4 loads when vec != 0: a count >= 0, or minus the CUDA error of
+// the query.
+extern "C" int wsdl_cam_fusion_max_clusters(int C, int HW, int S, int vec) {
+  if (!valid(1, C, HW, S) || (vec && HW % 4)) return -static_cast<int>(cudaErrorInvalidValue);
+  Plan pl;
+  make_plan(pl, vec != 0, 1, C, HW, S, nullptr);
+  int n = 0;
+  const cudaError_t err = max_active_clusters(pl, &n);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
 // act, grad [B,C,h,w] and out [B,h,w]: contiguous float32 on the device, with
-// HW = h*w; stream: the cudaStream_t to launch on. Requires 1 <= B <= 2^31-1,
-// C >= 1 and HW*4 bytes within the card's 227 KB of shared memory (the wrapper
-// checks HW <= 50000).
+// HW = h*w; S: the CTAs of an image's cluster, 1..8; stream: the cudaStream_t
+// to launch on. Requires B >= 1, C >= 1 and HW*4 bytes within the card's
+// 227 KB of shared memory (the wrapper checks HW <= 50000). Returns
+// cudaErrorInvalidConfiguration if the card cannot hold one such cluster.
 extern "C" int wsdl_cam_fusion(const void* act, const void* grad, void* out, int B, int C,
-                               int HW, void* stream) {
-  const int PT = std::min(PIXEL_LANES, (HW + 31) / 32 * 32);
-  const int fit = DEFAULT_SMEM / (int)(sizeof(float) * HW);  // groups that need no opt-in
-  const int G = std::max(1, std::min({MAX_THREADS / PT, C, fit}));
-  const size_t smem = sizeof(float) * (size_t)G * HW;
-  if (smem > DEFAULT_SMEM) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cam_fusion, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                               int HW, int S, void* stream) {
+  if (!valid(B, C, HW, S)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = HW % 4 == 0 && reinterpret_cast<std::uintptr_t>(act) % 16 == 0 &&
+                   reinterpret_cast<std::uintptr_t>(grad) % 16 == 0;
+  Plan pl;
+  make_plan(pl, vec, B, C, HW, S, stream);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  std::atomic<size_t>* ok = device < MAX_DEVICES ? &checked[device][vec][S] : nullptr;
+  if (ok == nullptr || pl.config.dynamicSmemBytes > ok->load(std::memory_order_relaxed)) {
+    int n = 0;
+    err = max_active_clusters(pl, &n);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (n < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    if (ok != nullptr) ok->store(pl.config.dynamicSmemBytes, std::memory_order_relaxed);
   }
-  cam_fusion<<<B, PT * G, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(act), static_cast<const float*>(grad),
-      static_cast<float*>(out), C, HW, PT, G);
+  err = cudaLaunchKernelEx(&pl.config, pl.kernel, static_cast<const float*>(act),
+                           static_cast<const float*>(grad), static_cast<float*>(out), C, HW, S,
+                           pl.CS, pl.PT, pl.G);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,25 +15,28 @@
 // JAX package, which custom_vjp fused_window_sum joins into one function.
 //
 // Design. One block per 16x16 tile of one image, one thread per tile pixel.
-// More than CHUNK classes are swept in chunks of CHUNK class planes.
-//   Forward: the tile and a halo of `pad` pixels of the image and of a chunk
-//   of S are loaded into shared memory (clipped to the image; reflected
-//   neighbours lie inside the halo), and each pixel takes its terms from
-//   window_common.cuh::window_terms, its affinities recomputed for each
-//   chunk. It writes one partial sum per tile; a second launch of one block
-//   adds the partials in a fixed order, so there are no float atomics and two
+// Both kernels stage the image and a chunk of NC = min(C, CHUNK) class planes
+// of S over the tile and a halo of pad pixels that holds reflect's values
+// (halo position z holds pixel reflect(z); Halo below), issuing every global
+// load before the first store to shared memory, and write the tile's pair
+// table once for all chunks (window_common.cuh::fill_pairs: one affinity per
+// pair of positions). More than CHUNK classes are swept in chunks, in class
+// order.
+//   Forward: over a reflect-valued halo the centre role is the whole window
+//   sum, edges included, so every pixel inside the image takes its terms
+//   from the table (centre_terms), the same sum in the same order and with
+//   the same bits as window_terms; no pixel needs the reflect preimages. It
+//   writes one partial sum per tile; a second launch of one block adds the
+//   partials in a fixed order, so there are no float atomics and two
 //   launches give the same bits.
 //   Backward, the gather form of the JAX kernel's slice-accumulates and
 //   reflect fold (one write per pixel and class), built as refine.cu's window
-//   pass: the image and S are staged over a halo that holds reflect's values,
-//   the tile's pair table (window_common.cuh::fill_pairs: one affinity per
-//   pair of positions) is written once for all chunks, and each pixel more
-//   than pad from every edge takes 4 sum_o aff_o(u) d_o(u) from it
-//   (centre_terms; the neighbour role's terms are minus the centre role's
-//   there). The pixels within pad of an edge (window_common.cuh::near_edge),
-//   where reflect adds preimages, are listed and spread over the block's lane
-//   groups through window_terms, their affinities recomputed. Two launches
-//   give the same bits.
+//   pass: each pixel more than pad from every edge takes 4 sum_o aff_o(u)
+//   d_o(u) from the table (centre_terms; the neighbour role's terms are minus
+//   the centre role's there). The pixels within pad of an edge
+//   (window_common.cuh::near_edge), where reflect adds preimages, are listed
+//   and spread over the block's lane groups through window_terms, their
+//   affinities recomputed. Two launches give the same bits.
 //
 // Bound. Inside the image the terms (p, o) and (p + o, -o) are one pair, so
 // the function needs K/2 affinities per pixel (11 operations each) and per
@@ -41,12 +44,12 @@
 // read once and, backward, the gradient written once. At [8,256,256,2],
 // window 5, bytes bind both: 3.1 and 4.4 us (chip_smoke.py's window_work).
 // What the design does about it: every byte is read once from device memory
-// into shared memory, and the affinities are computed in registers or shared
-// memory instead of stored in device memory. The forward computes every
-// pair's affinity twice (K expf per pixel). The backward computes the tile's
-// pairs once (K/2 per pixel, plus the halo's: about 17 at window 5) and only
-// the edge pixels recompute theirs; before, every pixel recomputed both roles'
-// (about 2K expf) and walked the reflect preimages.
+// into shared memory, and the affinities are computed once per pair of
+// positions into shared memory (K/2 per pixel, plus the halo's: about 17 at
+// window 5) instead of stored in device memory; only the backward's edge
+// pixels recompute theirs. Both kernels stay far above the bound: an
+// affinity costs an expf and its shared-memory loads, and a pair term its
+// loads, so the instructions a block issues bind them (PERF.md).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and loaded with ctypes (ops/window.py). The entry points return the first
@@ -73,75 +76,105 @@ struct Params {
   float spatial[MAX_WIN * MAX_WIN];   // spatial term of offset (dy, dx), row-major
 };
 
-// The forward's tile origin and image halo (shared coordinates: image
-// coordinate - origin).
-struct Tile {
-  int b, tile, oy, ox, hs, y, x;
-  long base;
+// Each kernel's shared memory, floats: the image and NC class planes of
+// probs over the tile and its halo, then the tile's pair table.
+template <int PAD, int NC>
+struct TileSmem {
+  static constexpr int FLOATS = (3 + NC) * HALO * HALO + wsdl::Window<PAD>::PAIRS;
 };
 
-__device__ __forceinline__ Tile load_tile(const float* __restrict__ img,
-                                          float (*s_img)[HALO][HALO], const Params& p) {
-  Tile t;
-  t.tile = blockIdx.x;
-  t.b = blockIdx.y;
-  const int ty0 = (t.tile / p.tiles_x) * TILE, tx0 = (t.tile % p.tiles_x) * TILE;
-  t.oy = ty0 - p.pad;
-  t.ox = tx0 - p.pad;
-  t.hs = TILE + 2 * p.pad;
-  t.base = static_cast<long>(t.b) * p.H * p.W;
-  t.y = ty0 + threadIdx.x / TILE;
-  t.x = tx0 + threadIdx.x % TILE;
-  for (int i = threadIdx.x; i < t.hs * t.hs; i += THREADS) {
-    const int hy = i / t.hs, hx = i % t.hs, y = t.oy + hy, x = t.ox + hx;
-    if (y < 0 || y >= p.H || x < 0 || x >= p.W) continue;
-    const long pix = t.base + static_cast<long>(y) * p.W + x;
+// The image and the first NC classes of probs over the tile at (ty0 - PAD,
+// tx0 - PAD) and its halo, into s_img and s_p: halo position z holds pixel
+// reflect(z), and zeros past reflect's reach (which no pixel of the image
+// reads). Every load is issued before the first store to shared memory. The
+// pixels' indices are kept for load_chunk.
+template <int PAD, int NC>
+struct Halo {
+  static constexpr int HS = TILE + 2 * PAD, PER_THREAD = (HS * HS + THREADS - 1) / THREADS;
+  long src[PER_THREAD];
+
+  __device__ __forceinline__ void load(const float* __restrict__ probs,
+                                       const float* __restrict__ img, float (*s_img)[HALO][HALO],
+                                       float (*s_p)[HALO][HALO], int oy, int ox, long base,
+                                       const Params& p) {
+    float im[PER_THREAD][3], pr[PER_THREAD][NC];
+    const int nc0 = min(NC, p.C);
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) s_img[ch][hy][hx] = img[pix * 3 + ch];
+    for (int j = 0; j < PER_THREAD; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      const int sy = wsdl::reflect_reach(oy + i / HS, p.H);
+      const int sx = wsdl::reflect_reach(ox + i % HS, p.W);
+      src[j] = i < HS * HS && sy >= 0 && sx >= 0 ? base + static_cast<long>(sy) * p.W + sx : -1;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) im[j][ch] = src[j] < 0 ? 0.f : img[src[j] * 3 + ch];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        pr[j][c] = src[j] < 0 || c >= nc0 ? 0.f : probs[src[j] * p.C + c];
+    }
+#pragma unroll
+    for (int j = 0; j < PER_THREAD; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      if (i >= HS * HS) continue;
+      const int hy = i / HS, hx = i % HS;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) s_img[ch][hy][hx] = im[j][ch];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) s_p[c][hy][hx] = pr[j][c];
+    }
   }
-  return t;
-}
 
-// Classes c0 .. c0+nc-1 of S over the tile and its halo into s_p.
-__device__ __forceinline__ void load_chunk(const float* __restrict__ probs,
-                                           float (*s_p)[HALO][HALO], const Tile& t, int c0,
-                                           int nc, const Params& p) {
-  for (int i = threadIdx.x; i < t.hs * t.hs; i += THREADS) {
-    const int hy = i / t.hs, hx = i % t.hs, y = t.oy + hy, x = t.ox + hx;
-    if (y < 0 || y >= p.H || x < 0 || x >= p.W) continue;
-    const long pix = t.base + static_cast<long>(y) * p.W + x;
-    for (int c = 0; c < nc; ++c) s_p[c][hy][hx] = probs[pix * p.C + c0 + c];
+  // classes c0 .. c0 + nc - 1 into s_p (the caller syncs around it)
+  __device__ __forceinline__ void load_chunk(const float* __restrict__ probs,
+                                             float (*s_p)[HALO][HALO], int c0, int nc,
+                                             int C) const {
+#pragma unroll
+    for (int j = 0; j < PER_THREAD; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      if (i >= HS * HS) continue;
+      const int hy = i / HS, hx = i % HS;
+      for (int c = 0; c < nc; ++c) s_p[c][hy][hx] = src[j] < 0 ? 0.f : probs[src[j] * C + c0 + c];
+    }
   }
-}
+};
 
-// The affinities of the block's tile pixel, recomputed from s_img.
-__device__ __forceinline__ wsdl::TileAffinity tile_affinity(const float (*s_img)[HALO][HALO],
-                                                            const Tile& t, const Params& p) {
-  const int uy = t.y - t.oy, ux = t.x - t.ox;
-  return {s_img, t.oy, t.ox, s_img[0][uy][ux], s_img[1][uy][ux], s_img[2][uy][ux], p.inv2sc};
-}
-
+// One partial sum per tile: every tile pixel inside the image adds its window
+// terms from the pair table (centre_terms), chunk by chunk in class order,
+// then the block's fixed-order sum. NC: the classes swept at once, min(C,
+// CHUNK), a constant so that one or two classes do not pay for CHUNK.
+template <int PAD, int NC>
 __global__ void __launch_bounds__(THREADS)
 window_fwd(const float* __restrict__ probs, const float* __restrict__ img,
            float* __restrict__ partials, const Params p) {
-  __shared__ float s_img[3][HALO][HALO];
-  __shared__ float s_p[CHUNK][HALO][HALO];
+  extern __shared__ float smem[];
   __shared__ float s_red[THREADS / 32];
-  const Tile t = load_tile(img, s_img, p);
-  const bool inside = t.y < p.H && t.x < p.W;
+  float(*s_img)[HALO][HALO] = reinterpret_cast<float(*)[HALO][HALO]>(smem);
+  float(*s_p)[HALO][HALO] = s_img + 3;
+  float* s_pair = smem + (3 + NC) * HALO * HALO;
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const int ty0 = (tile / p.tiles_x) * TILE, tx0 = (tile % p.tiles_x) * TILE;
+  const int oy = ty0 - PAD, ox = tx0 - PAD;
+  const int y = ty0 + threadIdx.x / TILE, x = tx0 + threadIdx.x % TILE;
+  const bool inside = y < p.H && x < p.W;
+
+  Halo<PAD, NC> halo;
+  halo.load(probs, img, s_img, s_p, oy, ox, static_cast<long>(b) * p.H * p.W, p);
+  __syncthreads();
+  wsdl::fill_pairs<PAD>(s_img, s_pair, p.spatial, p.inv2sc);
+  __syncthreads();
+
+  const wsdl::PairAffinity<PAD> pairs{s_pair, y - ty0, x - tx0};
   float wsum = 0.f;
-  for (int c0 = 0; c0 < p.C; c0 += CHUNK) {
-    const int nc = min(CHUNK, p.C - c0);
-    __syncthreads();  // the previous chunk's reads are done
-    load_chunk(probs, s_p, t, c0, nc, p);
-    __syncthreads();
-    if (!inside) continue;
-    wsdl::window_terms<CHUNK, false>(s_p, nc, t.y, t.x, p.H, p.W, p.pad, t.oy, t.ox, p.spatial,
-                                     tile_affinity(s_img, t, p), -p.pad, p.pad, wsum, nullptr,
-                                     nullptr);
+  for (int c0 = 0; c0 < p.C; c0 += NC) {
+    const int nc = min(NC, p.C - c0);
+    if (c0 > 0) {
+      __syncthreads();  // the previous chunk's reads are done
+      halo.load_chunk(probs, s_p, c0, nc, p.C);
+      __syncthreads();
+    }
+    if (inside) wsdl::centre_terms<PAD, NC, false>(s_p, nc, y - oy, x - ox, pairs, wsum, nullptr);
   }
   const float tile_sum = wsdl::block_sum(wsum, s_red);
-  if (threadIdx.x == 0) partials[static_cast<long>(t.b) * p.tiles + t.tile] = tile_sum;
+  if (threadIdx.x == 0) partials[static_cast<long>(b) * p.tiles + tile] = tile_sum;
 }
 
 // One block: the n partials summed in a fixed order into out[0].
@@ -154,13 +187,11 @@ window_sum_partials(const float* __restrict__ partials, long n, float* __restric
   if (threadIdx.x == 0) out[0] = total;
 }
 
-// window_bwd's shared memory, floats: the image and NC class planes of probs
-// over the tile and a halo that holds reflect's values (position z holds
-// pixel reflect(z)), the tile's pair table; then the edge phase's pixel list
-// and its count (ints).
+// window_bwd's shared memory: TileSmem, then the edge phase's pixel list and
+// its count (ints).
 template <int PAD, int NC>
 struct BwdSmem {
-  static constexpr int FLOATS = (3 + NC) * HALO * HALO + wsdl::Window<PAD>::PAIRS;
+  static constexpr int FLOATS = TileSmem<PAD, NC>::FLOATS;
   static constexpr size_t BYTES = sizeof(float) * FLOATS + sizeof(int) * (THREADS + 1);
 };
 
@@ -195,31 +226,8 @@ window_bwd(const float* __restrict__ probs, const float* __restrict__ img,
   const float g = gscale[0];
   if (threadIdx.x == 0) *s_nedge = 0;
 
-  // the halo's pixels (reflect's), their colour and the first chunk's classes
-  constexpr int HS = TILE + 2 * PAD, PER_THREAD = (HS * HS + THREADS - 1) / THREADS;
-  long src[PER_THREAD];
-  float im[PER_THREAD][3], pr[PER_THREAD][NC];
-  const int nc0 = min(NC, C);
-#pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    const int sy = wsdl::reflect_reach(oy + i / HS, H), sx = wsdl::reflect_reach(ox + i % HS, W);
-    src[j] = i < HS * HS && sy >= 0 && sx >= 0 ? base + static_cast<long>(sy) * W + sx : -1;
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) im[j][ch] = src[j] < 0 ? 0.f : img[src[j] * 3 + ch];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) pr[j][c] = src[j] < 0 || c >= nc0 ? 0.f : probs[src[j] * C + c];
-  }
-#pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    if (i >= HS * HS) continue;
-    const int hy = i / HS, hx = i % HS;
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) s_img[ch][hy][hx] = im[j][ch];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) s_p[c][hy][hx] = pr[j][c];
-  }
+  Halo<PAD, NC> halo;
+  halo.load(probs, img, s_img, s_p, oy, ox, base, p);
   __syncthreads();
   wsdl::fill_pairs<PAD>(s_img, s_pair, p.spatial, p.inv2sc);
   const bool edges = !wsdl::interior_tile(ty0, tx0, H, W, PAD);  // pixels near an edge
@@ -232,14 +240,7 @@ window_bwd(const float* __restrict__ probs, const float* __restrict__ img,
     const int nc = min(NC, C - c0);
     if (c0 > 0) {
       __syncthreads();  // the previous chunk's reads are done
-#pragma unroll
-      for (int j = 0; j < PER_THREAD; ++j) {
-        const int i = threadIdx.x + j * THREADS;
-        if (i >= HS * HS) continue;
-        const int hy = i / HS, hx = i % HS;
-        for (int c = 0; c < nc; ++c)
-          s_p[c][hy][hx] = src[j] < 0 ? 0.f : probs[src[j] * C + c0 + c];
-      }
+      halo.load_chunk(probs, s_p, c0, nc, C);
       __syncthreads();
     }
     if (inside && !listed) {
@@ -293,30 +294,44 @@ window_bwd(const float* __restrict__ probs, const float* __restrict__ img,
   }
 }
 
-// window_bwd at this window and class count, its shared memory raised above
-// the default 48 KB where it needs more (window 7).
-template <int PAD, int NC>
-cudaError_t launch_bwd_nc(const float* probs, const float* img, const float* gscale, float* grad,
-                          const Params& p, cudaStream_t s) {
-  constexpr size_t smem = BwdSmem<PAD, NC>::BYTES;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        window_bwd<PAD, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+template <int PAD_, int NC_>
+struct Shape {
+  static constexpr int PAD = PAD_, NC = NC_;
+};
+
+// f(Shape<PAD, NC>{}) at p's window and NC = min(C, CHUNK).
+template <int PAD, class F>
+cudaError_t by_classes(const Params& p, F& f) {
+  switch (p.C < CHUNK ? p.C : CHUNK) {
+    case 1: return f(Shape<PAD, 1>{});
+    case 2: return f(Shape<PAD, 2>{});
+    case 3: return f(Shape<PAD, 3>{});
+    default: return f(Shape<PAD, CHUNK>{});
   }
-  window_bwd<PAD, NC><<<dim3(p.tiles, p.B), THREADS, smem, s>>>(probs, img, gscale, grad, p);
-  return cudaGetLastError();
 }
 
-template <int PAD>
-cudaError_t launch_bwd(const float* probs, const float* img, const float* gscale, float* grad,
-                       const Params& p, cudaStream_t s) {
-  switch (p.C < CHUNK ? p.C : CHUNK) {
-    case 1: return launch_bwd_nc<PAD, 1>(probs, img, gscale, grad, p, s);
-    case 2: return launch_bwd_nc<PAD, 2>(probs, img, gscale, grad, p, s);
-    case 3: return launch_bwd_nc<PAD, 3>(probs, img, gscale, grad, p, s);
-    default: return launch_bwd_nc<PAD, CHUNK>(probs, img, gscale, grad, p, s);
+template <class F>
+cudaError_t by_shape(const Params& p, F&& f) {
+  switch (p.pad) {
+    case 1: return by_classes<1>(p, f);
+    case 2: return by_classes<2>(p, f);
+    case 3: return by_classes<3>(p, f);
+    default: return cudaErrorInvalidValue;
   }
+}
+
+// One block a tile, its dynamic shared memory raised above the default 48 KB
+// where it needs more (window 7).
+template <class... KernelArgs, class... Args>
+cudaError_t launch_tiles(void (*kernel)(KernelArgs...), size_t smem, const Params& p,
+                         cudaStream_t s, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<dim3(p.tiles, p.B), THREADS, smem, s>>>(args...);
+  return cudaGetLastError();
 }
 
 // Fills p from the arguments; false if the kernels do not take them.
@@ -349,11 +364,15 @@ extern "C" int wsdl_window_sum(const void* probs, const void* img, void* partial
   Params p;
   if (!make_params(p, B, H, W, C, window, inv2sc, spatial))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* P = static_cast<const float*>(probs);
+  const float* I = static_cast<const float*>(img);
   float* part = static_cast<float*>(partials);
-  window_fwd<<<dim3(p.tiles, B), THREADS, 0, s>>>(static_cast<const float*>(probs),
-                                                  static_cast<const float*>(img), part, p);
-  cudaError_t err = cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = by_shape(p, [&](auto shape) {
+    using S = decltype(shape);
+    return launch_tiles(window_fwd<S::PAD, S::NC>,
+                        sizeof(float) * TileSmem<S::PAD, S::NC>::FLOATS, p, s, P, I, part, p);
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
   window_sum_partials<<<1, SUM_THREADS, 0, s>>>(part, static_cast<long>(B) * p.tiles,
                                                 static_cast<float*>(out));
@@ -373,10 +392,9 @@ extern "C" int wsdl_window_sum_grad(const void* probs, const void* img, const vo
   const float* G = static_cast<const float*>(gscale);
   float* out = static_cast<float*>(grad);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p.pad) {
-    case 1: return static_cast<int>(launch_bwd<1>(P, I, G, out, p, s));
-    case 2: return static_cast<int>(launch_bwd<2>(P, I, G, out, p, s));
-    case 3: return static_cast<int>(launch_bwd<3>(P, I, G, out, p, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(by_shape(p, [&](auto shape) {
+    using S = decltype(shape);
+    return launch_tiles(window_bwd<S::PAD, S::NC>, BwdSmem<S::PAD, S::NC>::BYTES, p, s, P, I, G,
+                        out, p);
+  }));
 }

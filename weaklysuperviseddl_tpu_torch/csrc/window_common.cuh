@@ -2,7 +2,8 @@
 // kernel (refine.cu): the tile geometry, reflect indexing and its preimages,
 // the colour affinity of one pixel pair, one pixel's window sum and gradient
 // (window_terms; centre_terms and a table of one affinity per pixel pair,
-// fill_pairs, for the refinement's faster path), and a fixed-order block sum.
+// fill_pairs, for the faster paths of the refinement and of both window.cu
+// kernels), and a fixed-order block sum.
 //
 // The window term of pixel r and offset o pairs r with its neighbour
 // n = reflect(r + o) (jnp.pad(mode="reflect"): the edge is not repeated):

@@ -5,7 +5,8 @@ into ``build/`` (listed in ``.gitignore``), named by a hash of its source and
 of the shared headers ``csrc/*.cuh``, so a changed source never loads a stale
 library. The libraries are loaded with
 ``ctypes`` by the module that wraps each kernel; ``launch_device`` is the
-device context such a launch runs in.
+device context such a launch runs in, ``stream_handle`` the stream it is
+queued on.
 """
 
 from __future__ import annotations
@@ -75,3 +76,15 @@ def launch_device(device):
     if device.index is None or device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+def stream_handle(device) -> int:
+    """The ``cudaStream_t`` of the current stream on CUDA ``device``, as the
+    int a ctypes launch takes, from torch's raw accessor (the one Triton's
+    launchers use): it builds no ``torch.cuda.Stream`` object, which
+    ``torch.cuda.current_stream(device).cuda_stream`` does at a cost of
+    several microseconds of host time a call."""
+    import torch
+
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -5,19 +5,22 @@ act, grad [B,C,h,w] (the port's NCHW activations and their gradients) →
 relu(Σ_c relu(grad ⊙ act)) → per-image (x − min)/(max − min + 1e-8), [B,h,w].
 ``cam_fusion`` launches the CUDA kernel on CUDA tensors and runs the plain
 version on CPU tensors; ``cam/layercam.py`` reaches it through
-``fusion="pallas"``.
+``fusion="pallas"``. The kernel spreads each image over a thread-block
+cluster of ``cluster_size`` CTAs, each summing a slice of the channels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from weaklysuperviseddl_tpu_torch.ops.build import build
+from weaklysuperviseddl_tpu_torch.ops.build import build, launch_device, stream_handle
 
 SOURCE = "cam_fusion.cu"
 MAX_PIXELS = 50000  # the kernel holds one image's h·w sums in shared memory
+CLUSTER_SIZES = (1, 2, 4, 8)  # CTAs an image; 8 is the card's portable cluster limit
 
 _lib = None
 
@@ -26,11 +29,38 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build(SOURCE)))
-        lib.wsdl_cam_fusion.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        lib.wsdl_cam_fusion.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         lib.wsdl_cam_fusion.restype = ctypes.c_int
+        lib.wsdl_cam_fusion_max_clusters.argtypes = [ctypes.c_int] * 4
+        lib.wsdl_cam_fusion_max_clusters.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=64)
+def cluster_size(B: int, C: int, sms: int) -> int:
+    """The CTAs of an image's cluster: of ``CLUSTER_SIZES``, at most C, the
+    one whose B·S CTAs come nearest to one wave of the card's ``sms``
+    streaming multiprocessors (the smaller on a tie): 4 at B = 32 on 132."""
+    return min((s for s in CLUSTER_SIZES if s <= C), key=lambda s: (abs(B * s - sms), s))
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device, queried once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def max_active_clusters(C: int, hw: int, S: int, vectorized: bool) -> int:
+    """How many clusters of S CTAs the current CUDA device holds at once for
+    a call with C channels of h·w = ``hw`` pixels (``vectorized``: the float4
+    loads taken when hw % 4 == 0 and the tensors are 16-byte aligned); 0
+    means the kernel could not launch. Raises on a failed query."""
+    n = _load().wsdl_cam_fusion_max_clusters(C, hw, S, int(vectorized))
+    if n < 0:
+        raise RuntimeError(f"cam_fusion occupancy query failed with cudaError {-n}")
+    return n
 
 
 def minmax(cam: torch.Tensor) -> torch.Tensor:
@@ -46,8 +76,9 @@ def cam_fusion_plain(act: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
 
 def cam_fusion_cuda(act: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
     """The kernel: act, grad [B,C,h,w] contiguous float32 CUDA tensors on one
-    device → [B,h,w], launched on the current stream without synchronising.
-    Raises on anything the kernel does not take."""
+    device → [B,h,w], launched on the current stream without synchronising,
+    one cluster of ``cluster_size`` CTAs an image. Raises on anything the
+    kernel does not take, and if the card cannot launch such clusters."""
     for name, t in (("act", act), ("grad", grad)):
         if t.device.type != "cuda":
             raise ValueError(f"cam_fusion_cuda needs CUDA tensors, {name} is on {t.device}")
@@ -70,12 +101,13 @@ def cam_fusion_cuda(act: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = _load()
-    stream = torch.cuda.current_stream(act.device).cuda_stream
-    with torch.cuda.device(act.device):
+    S = cluster_size(B, C, sm_count(act.device))
+    stream = stream_handle(act.device)
+    with launch_device(act.device):
         err = lib.wsdl_cam_fusion(act.data_ptr(), grad.data_ptr(), out.data_ptr(), B, C,
-                                  h * w, stream)
+                                  h * w, S, stream)
     if err != 0:
-        raise RuntimeError(f"cam_fusion launch failed with cudaError {err}")
+        raise RuntimeError(f"cam_fusion launch in clusters of {S} failed with cudaError {err}")
     cam_fusion_cuda.launches += 1
     return out
 

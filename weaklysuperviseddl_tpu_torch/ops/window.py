@@ -22,7 +22,7 @@ import functools
 import torch
 
 from weaklysuperviseddl_tpu_torch.losses.window import _window_terms, window_offsets
-from weaklysuperviseddl_tpu_torch.ops.build import build, launch_device
+from weaklysuperviseddl_tpu_torch.ops.build import build, launch_device, stream_handle
 
 SOURCE = "window.cu"
 MAX_WINDOW = 7       # windows 3, 5 and 7
@@ -124,19 +124,20 @@ def window_sum_cuda(probs, images, sigma_color, sigma_space, window_size):
     _check("window_sum_cuda", probs, images, window_size)
     B, H, W, C = probs.shape
     dev = probs.device
-    out = torch.empty((), dtype=torch.float32, device=dev)
+    # one buffer: the sum, then the kernel's B·tiles partials (scratch)
     tiles = ((H + 15) // 16) * ((W + 15) // 16)
-    partials = torch.empty((B * tiles,), dtype=torch.float32, device=dev)
+    buf = torch.empty((1 + B * tiles,), dtype=torch.float32, device=dev)
+    out = buf[0]
     if B == 0:
         return out.zero_()
     spatial = spatial_table(window_size, sigma_space)
     lib = _load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = stream_handle(dev)
     with launch_device(dev):
-        err = lib.wsdl_window_sum(probs.data_ptr(), images.data_ptr(), partials.data_ptr(),
-                                  out.data_ptr(), B, H, W, C, window_size,
-                                  1.0 / (2.0 * sigma_color ** 2), ctypes.addressof(spatial),
-                                  stream)
+        at = buf.data_ptr()
+        err = lib.wsdl_window_sum(probs.data_ptr(), images.data_ptr(), at + 4, at, B, H, W, C,
+                                  window_size, 1.0 / (2.0 * sigma_color ** 2),
+                                  ctypes.addressof(spatial), stream)
     if err != 0:
         raise RuntimeError(f"window_sum launch failed with cudaError {err}")
     window_sum_cuda.launches += 1
@@ -164,7 +165,7 @@ def window_sum_grad_cuda(probs, images, sigma_color, sigma_space, window_size, s
         return grad
     spatial = spatial_table(window_size, sigma_space)
     lib = _load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = stream_handle(dev)
     with launch_device(dev):
         err = lib.wsdl_window_sum_grad(probs.data_ptr(), images.data_ptr(), scale.data_ptr(),
                                        grad.data_ptr(), B, H, W, C, window_size,
