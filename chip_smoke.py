@@ -59,11 +59,13 @@ Phases, one JSON line each:
                dilated) → LayerCAM → pseudo-masks → DeepLabV3-ResNet50 os8
                (256², batch 4) ↔ refinement (256², C=2, window 5, 20 steps,
                ncut; plan "auto" = v1sym). Cut in depth only (listed in the
-               line). Both kernels' launch counts are reset just before and read
-               just after; then one refinement-sweep batch on the card against
-               the same weights on the CPU, at the path's lr and at lr 0.1 (mask
-               agreement >= 0.995), and a device-time breakdown of one training
-               step.
+               line). With a checkpoint_dir: a snapshot per alternation (the last
+               one held bit-equal to the run's final state; its size and seconds
+               reported). Both kernels' launch counts are reset just before and
+               read just after; then one refinement-sweep batch on the card
+               against the same weights on the CPU, at the path's lr and at lr
+               0.1 (mask agreement >= 0.995), and a device-time breakdown of one
+               training step.
   8. crf     - the bilateral-filter kernel against its plain PyTorch version on
                the card: ragged 531x187 with d 5 and C 1, 2, 3; d 20 with C 128;
                a batch of 3 with different features per image (rtol 1e-4, atol
@@ -105,6 +107,30 @@ Phases, one JSON line each:
                (the uploaded masks against the store's after the run); then one
                refinement batch of 1 image on the card against the CPU with the
                same weights (>= 0.995).
+ 12. weakly_resume - a copy of the weakly run's alt_000 (what a run stopped
+               after one alternation leaves) resumed through
+               run_weakly_supervised_alternating(resume=True) at weakly's config:
+               the restored state bit-equal to alt_000's files (model state
+               dict, Adam moments and counters, step, the store), K1 once per
+               sweep batch of the continuation, all v1sym (counts reset just
+               before, read just after), the final masks >= 0.995 equal to the
+               uninterrupted run's (bit equality reported: cuDNN's backward is
+               not bitwise deterministic); snapshot MB and checkpoint seconds.
+ 13. serve_checkpoint - Predictor(clean=True, packed=True) over the weakly
+               run's last snapshot, loaded by the CLI's loader, and over its
+               in-memory final model: masks equal on one batch of 64 at 256²; K2
+               counted; a ResNet-50 state refused by the smoke ResNet-18.
+ 14. supervised - run_supervised_training at full width (DeepLabV3-ResNet50,
+               256², batch 4, 128 synthetic pets), cut to 1 epoch and 1 test run:
+               metrics finite and in [0, 1]; evaluate_multiclass_dataset of the
+               trained model on the card against the CPU over 16 test images
+               (within 0.005 on acc and IoU); training img/s.
+ 15. ablations - run_ablation_experiment at full width with an untrained
+               classifier (as the CLI's), the grid's first point x 2 repeats,
+               seg.epochs 1: K2's count reset just before and read just after
+               (one launch per batch of 32 per run, image plan); the grid's
+               keep-largest masks equal to the plain keep-largest of the same
+               thresholded CAMs in the run's order; seconds per grid run.
 Then the script's seconds by phase, the card's name and power limit, the
 kernels line (each kernel's ``ms`` is the CUDA-event time of one call,
 ``back_to_back_ms`` the same over calls in a row, ``device_ms`` the summed
@@ -118,6 +144,8 @@ printed. Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import json
+import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -130,6 +158,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
 # the reference's CRF parameters (AlternatingDirectionCutLoss.py:183-204) and
 # the config's default backend
+# the snapshots of the weakly and weakly_resume phases (about 0.5 GB each),
+# inside the checkout (gitignored) and removed when the script ends
+CKPT_ROOT = pathlib.Path(__file__).resolve().parent / "chip_smoke_ckpt"
 CRF_REFERENCE = dict(gauss_sxy=1.0, gauss_compat=2.0, bilat_sxy=50.0, bilat_srgb=5.0,
                      bilat_compat=10.0, n_iters=5, bilat_backend="subsampled", key_stride=2)
 
@@ -1128,13 +1159,14 @@ def phase_weakly():
 
     sw = Stopwatch("cuda")
     torch.cuda.reset_peak_memory_stats()
+    ckpt_dir = CKPT_ROOT / "weakly"
     # ---- the main path: counts from 0, the pipeline, counts read after ----
     reset_cc_counts()
     refine_cuda.launches = 0
     refine_cuda.plan_launches = dict.fromkeys(refine_cuda.plan_launches, 0)
     t0 = time.perf_counter()
-    result = run_weakly_supervised_alternating(cfg, stopwatch=sw, log=lambda *_: None,
-                                               device="cuda")
+    result = run_weakly_supervised_alternating(cfg, checkpoint_dir=str(ckpt_dir), stopwatch=sw,
+                                               log=lambda *_: None, device="cuda")
     wall = time.perf_counter() - t0
     launches = {"refine": refine_cuda.launches, "cc_label": label_components_cuda.launches}
     plans = dict(refine_cuda.plan_launches)
@@ -1153,6 +1185,13 @@ def phase_weakly():
     images, masks, _ = result.mask_store.as_arrays()
     check(masks.shape == (n_train, 256, 256) and set(np.unique(masks)) <= {0, 1},
           "refined store masks are not binary [N,256,256]")
+    # the last snapshot holds the run's final state, bit for bit; the final
+    # model is kept for the serve_checkpoint phase before the checks below train it
+    check(sorted(p.name for p in ckpt_dir.iterdir()) == ["alt_000", "alt_001"],
+          f"snapshots {sorted(p.name for p in ckpt_dir.iterdir())}, expected alt_000, alt_001")
+    check_snapshot_equals(ckpt_dir / "alt_001", seg_state_snapshot(result.seg_state),
+                          result.mask_store, "weakly's last snapshot")
+    final_model = copy.deepcopy(result.seg_state.model).eval()
 
     # ---- one refinement-sweep batch, the card against the CPU, same weights:
     # at the path's lr (masks cannot move) and at lr 0.1 (they do) ----
@@ -1188,8 +1227,46 @@ def phase_weakly():
          wall_s=wall, phases=phases, metrics=m, peak_mem_gb=peak_gb,
          launches_main_path=launches, refine_plans_main_path=plans,
          card_cpu_sweep_agreement=agree,
-         store_fg_frac=float(masks.mean()), seg_step_ms=step_ms)
-    return launches
+         store_fg_frac=float(masks.mean()), seg_step_ms=step_ms,
+         checkpoint={"dir_entries": ["alt_000", "alt_001"],
+                     "snapshot_mb": snapshot_mb(ckpt_dir / "alt_000"),
+                     "seconds_per_snapshot": sw.times["checkpoint"] / sw.counts["checkpoint"]})
+    return launches, {"cfg": cfg, "ckpt_dir": ckpt_dir, "masks": masks, "metrics": m,
+                      "final_model": final_model}
+
+
+def seg_state_snapshot(state) -> dict:
+    """A CPU copy of a seg train state: the model's state dict, the optimizer's
+    moments and counters, step."""
+    opt = state.optimizer
+    return {"model": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+            "m": [t.cpu().clone() for t in opt.m], "v": [t.cpu().clone() for t in opt.v],
+            "counters": (opt.count, opt.notfinite_count, opt.total_notfinite, state.step)}
+
+
+def check_snapshot_equals(alt_dir, want: dict, store, what: str):
+    """The snapshot files of ``alt_dir``, read back with torch.load and
+    np.load, bit-equal to ``want`` (``seg_state_snapshot``) and ``store``."""
+    import torch
+
+    tree = torch.load(alt_dir / "state.pt", map_location="cpu", weights_only=True)
+    opt = tree["optimizer"]
+    check(tree["model"].keys() == want["model"].keys(), f"{what}: model keys differ")
+    check(all(torch.equal(tree["model"][k], v) for k, v in want["model"].items()),
+          f"{what}: the model's state dict differs")
+    check(len(opt["m"]) == len(want["m"]) and len(opt["v"]) == len(want["v"])
+          and all(torch.equal(a, b) for a, b in zip(opt["m"] + opt["v"], want["m"] + want["v"])),
+          f"{what}: Adam's moments differ")
+    counters = (opt["count"], opt["notfinite_count"], opt["total_notfinite"], tree["step"])
+    check(counters == want["counters"], f"{what}: counters {counters} != {want['counters']}")
+    images, masks, keys = store.as_arrays()
+    with np.load(alt_dir / "masks.npz", allow_pickle=False) as z:
+        check(z["keys"].tolist() == keys and np.array_equal(z["masks"], masks)
+              and np.array_equal(z["images"], images), f"{what}: the mask store differs")
+
+
+def snapshot_mb(alt_dir) -> float:
+    return sum(f.stat().st_size for f in alt_dir.iterdir()) / 2**20
 
 
 def phase_weakly_boundary():
@@ -1680,6 +1757,263 @@ def phase_weakly_crf():
     return launches
 
 
+def reset_refine_counts():
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
+
+    refine_cuda.launches = 0
+    refine_cuda.plan_launches = dict.fromkeys(refine_cuda.plan_launches, 0)
+
+
+def phase_weakly_resume(weakly):
+    import math
+    from unittest import mock
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
+    from weaklysuperviseddl_tpu_torch.pipelines import weakly as pipeline
+    from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch
+
+    cfg = weakly["cfg"]
+    # exactly what a run stopped after its first alternation leaves behind
+    resume_dir = CKPT_ROOT / "resume"
+    shutil.copytree(weakly["ckpt_dir"] / "alt_000", resume_dir / "alt_000")
+    restored, logs = [], []
+    restore = pipeline.restore_alternation
+
+    def recording_restore(root, state, iteration=None):
+        out = restore(root, state, iteration)
+        restored.append((seg_state_snapshot(out[0]), out[1], out[2]))
+        return out
+
+    sw = Stopwatch("cuda")
+    # ---- the main path: counts from 0, the resumed pipeline, counts read after ----
+    reset_cc_counts()
+    reset_refine_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(pipeline, "restore_alternation", recording_restore):
+        result = pipeline.run_weakly_supervised_alternating(
+            cfg, checkpoint_dir=str(resume_dir), resume=True, stopwatch=sw, log=logs.append,
+            device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {"refine": refine_cuda.launches, "cc_label": label_components_cuda.launches}
+    plans = dict(refine_cuda.plan_launches)
+    n_train = len(result.mask_store)
+    alt = cfg.alternating
+    want_refine = math.ceil(n_train / cfg.seg.batch_size) * alt.refine_repeats * (
+        alt.num_alternations - 1)
+    check(launches["refine"] == want_refine and plans["v1sym"] == want_refine,
+          f"refine launched {launches['refine']} times ({plans}) in the continuation, "
+          f"expected {want_refine}, all v1sym")
+    check(any("Resumed from" in s and "alternation 1" in s for s in logs),
+          "the run did not resume at alternation 1")
+    check(len(restored) == 1 and restored[0][2] == 1, "one restore, of alternation 0")
+    check_snapshot_equals(weakly["ckpt_dir"] / "alt_000", restored[0][0], restored[0][1],
+                          "the restored state against alt_000")
+    check(sorted(p.name for p in resume_dir.iterdir()) == ["alt_000", "alt_001"],
+          "the continuation did not snapshot alternation 1")
+    m = result.metrics
+    check(all(math.isfinite(m[k]) for k in ("alt_iou", "alt_acc")), f"non-finite metrics {m}")
+    check([t["alternation"] for t in m["trajectory"]] == [2], f"trajectory {m['trajectory']}")
+    _, masks, _ = result.mask_store.as_arrays()
+    check(masks.shape == weakly["masks"].shape, "the resumed store has another shape")
+    agree = float((masks == weakly["masks"]).mean())
+    # cuDNN's backward is not bitwise deterministic: bit equality is reported
+    check(agree >= 0.995, f"resumed final masks agree {agree} < 0.995 with the uninterrupted run")
+    phases = {name: {"seconds": sw.times[name], "calls": sw.counts[name],
+                     "img_per_s": sw.rate(name)} for name in sw.times}
+    emit("weakly_resume", entry="run_weakly_supervised_alternating(resume=True)",
+         resumed_from="a copy of the weakly phase's alt_000", cuts="as weakly; alternation 1 "
+         "of 2 (alternation 0 restored)", train_images=n_train, wall_s=wall, phases=phases,
+         launches_main_path=launches, refine_plans_main_path=plans,
+         restored_state_bit_equal_to_alt_000=True,
+         final_masks_agreement=agree, final_masks_bit_equal=bool(np.array_equal(
+             masks, weakly["masks"])),
+         alt_iou={"resumed": m["alt_iou"], "uninterrupted": weakly["metrics"]["alt_iou"]},
+         snapshot_mb=snapshot_mb(resume_dir / "alt_001"),
+         checkpoint_s=sw.times["checkpoint"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return launches
+
+
+def phase_serve_checkpoint(weakly):
+    from weaklysuperviseddl_tpu_torch.cli import serve_model
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+    from weaklysuperviseddl_tpu_torch.pipelines.serve import Predictor
+
+    size, batch = 256, 64
+    state_file = weakly["ckpt_dir"] / "alt_001" / "state.pt"
+    t0 = time.perf_counter()
+    loaded = serve_model(smoke=False, checkpoint=str(state_file))  # the CLI's loader
+    load_s = time.perf_counter() - t0
+    try:
+        serve_model(smoke=True, checkpoint=str(state_file))
+        refused = False
+    except ValueError as e:
+        refused = "do not fit" in str(e)
+    check(refused, "a ResNet-50 state loaded into the smoke ResNet-18 without an error")
+    from_file = Predictor(loaded, size=size, max_batch=batch, clean=True, packed=True,
+                          device="cuda")
+    in_memory = Predictor(weakly["final_model"], size=size, max_batch=batch, clean=True,
+                          packed=True, device="cuda")
+    reqs = _requests(np.random.default_rng(8), batch, (size, size))
+    # ---- the path: counts from 0, one batch through each Predictor, counts read after ----
+    reset_cc_counts()
+    got = from_file(reqs)
+    want = in_memory(reqs)
+    launches = {"cc_label": label_components_cuda.launches}
+    check_cc_image_plan("serve_checkpoint")
+    check(got.shape == (batch, size, size) and set(np.unique(got)) <= {0, 1},
+          "masks served from the checkpoint are not binary [64,256,256]")
+    check(np.array_equal(got, want),
+          "masks served from the snapshot differ from the in-memory model's")
+    emit("serve_checkpoint", entry="cli.serve_model(checkpoint=alt_001/state.pt) + "
+         "Predictor(clean=True, packed=True)", batch=batch, size=size, load_s=load_s,
+         masks_equal=True, fg_frac=float(got.mean()), wrong_model_refused=refused,
+         launches_main_path=launches)
+    return launches
+
+
+def phase_supervised():
+    import copy
+    import math
+    from unittest import mock
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.config import ExperimentConfig
+    from weaklysuperviseddl_tpu_torch.pipelines import supervised
+    from weaklysuperviseddl_tpu_torch.train.segmentation import evaluate_multiclass_dataset
+
+    cfg = ExperimentConfig()
+    cuts = {"num_epochs": 1, "test_runs": 1}  # of seg.epochs 5 and the reference's 3
+    seconds, n_train = {"train": [], "eval": []}, []
+
+    def timed_call(name, fn):
+        def wrapped(*args, **kw):
+            if name == "train":
+                n_train.append(len(args[1]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(supervised, "train_segmentation_model",
+                           timed_call("train", supervised.train_segmentation_model)), \
+            mock.patch.object(supervised, "evaluate_multiclass_dataset",
+                              timed_call("eval", supervised.evaluate_multiclass_dataset)):
+        state, metrics = supervised.run_supervised_training(cfg, log=lambda *_: None,
+                                                            device="cuda", **cuts)
+    wall = time.perf_counter() - t0
+    check(all(math.isfinite(v) for v in metrics.values())
+          and all(0.0 <= metrics[k] <= 1.0 for k in ("acc_mean", "iou_mean")),
+          f"supervised metrics {metrics}")
+    check(len(seconds["eval"]) == 2, "one validation and one test evaluation")
+    # the epoch's validation runs inside the training call
+    train_s = seconds["train"][0] - seconds["eval"][0]
+
+    # evaluate_multiclass_dataset on the card against the same weights on the CPU
+    images, trimaps = supervised.load_test_arrays(cfg, "cuda")
+    images, trimaps = images[:16], trimaps[:16]
+    kw = dict(num_classes=2, batch_size=cfg.data.eval_batch_size, seg_size=cfg.data.seg_size)
+    card = evaluate_multiclass_dataset(state.model, images, trimaps, **kw)
+    cpu = evaluate_multiclass_dataset(copy.deepcopy(state.model).cpu(), images.cpu(),
+                                      trimaps.cpu(), **kw)
+    check(abs(card[0] - cpu[0]) <= 0.005 and abs(card[1] - cpu[1]) <= 0.005,
+          f"card (acc, iou) {card} against the CPU's {cpu}: more than 0.005 apart")
+    emit("supervised", entry="run_supervised_training",
+         model="DeepLabV3-ResNet50 os8 (2 classes, 256², batch 4), random init (seed 0)",
+         cuts=cuts, train_images=n_train[0], wall_s=wall, metrics=metrics,
+         train_s=train_s, train_img_per_s=n_train[0] / train_s,
+         eval_s={"validation": seconds["eval"][0], "test": seconds["eval"][1]},
+         card_cpu_eval={"images": 16, "card": card, "cpu": cpu},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_ablations():
+    import math
+    from unittest import mock
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.config import ExperimentConfig, SegConfig
+    from weaklysuperviseddl_tpu_torch.masks.components import keep_largest_batch
+    from weaklysuperviseddl_tpu_torch.masks.pseudo import cam_to_mask
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+    from weaklysuperviseddl_tpu_torch.pipelines import ablations
+    from weaklysuperviseddl_tpu_torch.pipelines.weakly import build_classifier
+
+    cfg = ExperimentConfig(seg=SegConfig(epochs=1))
+    grid, repeats = ablations.default_grid()[:1], 2
+    cuts = {"grid": "the first of default_grid()'s 12 points", "num_repeats": repeats,
+            "seg.epochs": 1}
+    classifier = build_classifier(cfg, "cuda")  # untrained, as the CLI's
+    residents, stores, run_s = [], [], []
+    extract, derive, run = ablations.extract_cams, ablations.masks_from_cams, ablations.run_ablation
+
+    def recording_extract(*args, **kw):
+        residents.append(extract(*args, **kw))
+        return residents[-1]
+
+    def recording_derive(resident, **kw):
+        stores.append((derive(resident, **kw), kw))
+        return stores[-1][0]
+
+    def timed_run(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(*args, **kw)
+        torch.cuda.synchronize()
+        run_s.append(time.perf_counter() - t0)
+        return out
+
+    # ---- the main path: counts from 0, the grid, counts read after ----
+    reset_cc_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(ablations, "extract_cams", recording_extract), \
+            mock.patch.object(ablations, "masks_from_cams", recording_derive), \
+            mock.patch.object(ablations, "run_ablation", timed_run):
+        results = ablations.run_ablation_experiment(grid, classifier, cfg, num_repeats=repeats,
+                                                    log=lambda *_: None)
+    wall = time.perf_counter() - t0
+    launches = {"cc_label": label_components_cuda.launches}
+    check_cc_image_plan("ablations")
+    check(len(residents) == 1 and len(stores) == repeats, "CAMs once, masks once per run")
+    resident = residents[0]
+    want = repeats * math.ceil(min(len(resident), cfg.mask.max_images) / resident.batch_size)
+    check(launches["cc_label"] == want, f"cc_label launched {launches['cc_label']} times, "
+          f"expected {want}")
+    # the path's masks (keep-largest by the kernel) against the plain keep-largest
+    # of the same thresholded CAMs, in the run's order
+    removed = []
+    for store, kw in stores:
+        idx = torch.from_numpy(kw["order"][:kw["max_images"]]).cuda()
+        thresholded = cam_to_mask(resident.cams[idx], kw["cam_thresh"], keep_largest_masks=False)
+        plain = keep_largest_batch(thresholded, backend="plain")
+        check(np.array_equal(plain.cpu().numpy(), store.as_arrays()[1]),
+              "the grid's keep-largest masks differ from the plain keep-largest")
+        removed.append(float((thresholded != plain).float().mean()))
+    runs = [r for r in results if "run_id" in r]
+    summary = results[-1]
+    check(len(runs) == repeats and "iou_mean" in summary, f"{len(runs)} runs, summary {summary}")
+    check(all(math.isfinite(r[k]) for r in runs for k in ("iou", "acc", "final_loss")),
+          f"non-finite run results {runs}")
+    emit("ablations", entry="run_ablation_experiment",
+         models="CamClassifier ResNet-50 (37 classes, 224², untrained, seed 0); DeepLabV3-"
+                "ResNet50 os8 (256², batch 4) per run, seeded by run_key",
+         cuts=cuts, train_images=len(resident), wall_s=wall, seconds_per_run=run_s,
+         mean_seconds_per_run=statistics.mean(run_s), summary=summary,
+         runs=[{k: r[k] for k in ("run_id", "iou", "acc", "final_loss")} for r in runs],
+         keep_largest_removed_frac=removed, launches_main_path=launches)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1689,6 +2023,15 @@ def main() -> int:
     import weaklysuperviseddl_tpu_torch  # noqa: F401  (fails here, before any output, outside a checkout)
 
     seconds, t_start = {}, time.perf_counter()
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    try:
+        return run_phases(seconds, t_start)
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+
+
+def run_phases(seconds: dict, t_start: float) -> int:
+    import torch
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -1703,11 +2046,17 @@ def main() -> int:
     refine_timing, path_batch, batch8 = timed("refine", phase_refine)
     window = timed("window", phase_window, path_batch, batch8)
     del path_batch, batch8
-    weakly_launches = timed("weakly", phase_weakly)
+    weakly_launches, weakly_run = timed("weakly", phase_weakly)
     crf_timing = timed("crf", phase_crf)
     fusion = timed("cam_fusion", phase_cam_fusion)
     crf_launches = timed("weakly_crf", phase_weakly_crf)
     boundary_launches = timed("weakly_boundary", phase_weakly_boundary)
+    resume_launches = timed("weakly_resume", phase_weakly_resume, weakly_run)
+    serve_ckpt_launches = timed("serve_checkpoint", phase_serve_checkpoint, weakly_run)
+    del weakly_run
+    shutil.rmtree(CKPT_ROOT)
+    timed("supervised", phase_supervised)
+    ablation_launches = timed("ablations", phase_ablations)
 
     from weaklysuperviseddl_tpu_torch.masks.components import label_components
     from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda, plan_for
@@ -1715,6 +2064,11 @@ def main() -> int:
     def by_path(name, **paths):
         paths["weakly_crf"] = crf_launches.get(name, 0)
         paths["weakly_boundary"] = boundary_launches.get(name, 0)
+        for path, counts in (("weakly_resume", resume_launches),
+                             ("serve_checkpoint", serve_ckpt_launches),
+                             ("ablations", ablation_launches)):
+            if name in counts:
+                paths[path] = counts[name]
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     def timed_fields(t):

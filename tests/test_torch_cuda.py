@@ -480,3 +480,75 @@ def test_layercam_pallas_fusion_launches_the_kernel(cuda):
     assert cam_fusion_cuda.launches == before + 2
     want, _ = layercam(model, x, None, output_size=64, fusion="xla")
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_dropout_generator_on_the_card(cuda):
+    """The ASPP dropout draws its mask from a generator on the card: one seed,
+    one mask; another seed, another; seeding and drawing copy nothing from the
+    host (no host-to-device copy in a profiler trace of three steps' worth)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3, seed_dropout
+
+    model = DeepLabV3(backbone_depth=18, width_multiplier=0.25).to(cuda).train()
+    drop = model.classifier[0].project[3]
+    x = torch.rand((4, 64, 32, 32), device=cuda) + 0.5
+    seed_dropout(model, 11)
+    a = drop(x)
+    seed_dropout(model, 11)
+    b = drop(x)
+    seed_dropout(model, 12)
+    c = drop(x)
+    assert drop.generator.device == x.device
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert abs((a != 0).float().mean().item() - 0.5) < 0.01
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for seed in range(3):
+            seed_dropout(model, seed)
+            drop(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert any("bernoulli" in n for n in names)
+    assert not [n for n in names if "HtoD" in n]
+
+
+def test_snapshot_from_the_card_restores_on_the_cpu_and_back(cuda, tmp_path):
+    """A snapshot written from a state on the card restores into a state on the
+    CPU bit for bit, and that one's snapshot into a state on the card."""
+    from weaklysuperviseddl_tpu_torch.data.mask_store import MaskStore
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
+    from weaklysuperviseddl_tpu_torch.train.segmentation import create_seg_state, seg_train_step
+    from weaklysuperviseddl_tpu_torch.utils.checkpoint import restore_alternation, save_alternation
+
+    def state(device, seed):
+        return create_seg_state(DeepLabV3(backbone_depth=18, width_multiplier=0.25), seed=seed,
+                                lr=1e-3, device=device)
+
+    def assert_same(got, want):
+        dev = next(got.model.parameters()).device
+        for (k, a), b in zip(got.model.state_dict().items(), want.model.state_dict().values()):
+            assert a.device == dev and torch.equal(a.cpu(), b.cpu()), k
+        opt_a, opt_b = got.optimizer, want.optimizer
+        assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(opt_a.m + opt_a.v,
+                                                                 opt_b.m + opt_b.v))
+        assert (opt_a.count, got.step) == (opt_b.count, want.step) == (1, 1)
+
+    card = state(cuda, 0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((2, 48, 48, 3), device=cuda, generator=gen)
+    masks = torch.randint(0, 2, (2, 48, 48), device=cuda, generator=gen)
+    seg_train_step(card, x, masks, torch.ones(2, dtype=torch.bool, device=cuda))
+    store = MaskStore()
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        store.put(f"{i:05d}", rng.integers(0, 256, (48, 48, 3), dtype=np.uint8),
+                  rng.integers(0, 2, (48, 48)))
+    save_alternation(str(tmp_path / "card"), 0, card, store)
+    on_cpu, cpu_store, nxt = restore_alternation(str(tmp_path / "card"), state("cpu", 1))
+    assert nxt == 1
+    assert_same(on_cpu, card)
+    np.testing.assert_array_equal(cpu_store.as_arrays()[1], store.as_arrays()[1])
+    save_alternation(str(tmp_path / "cpu"), 0, on_cpu, cpu_store)
+    back, _, _ = restore_alternation(str(tmp_path / "cpu"), state(cuda, 2))
+    assert_same(back, card)

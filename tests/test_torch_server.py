@@ -299,6 +299,8 @@ def test_cli_serve_smoke_on_cpu(capsys):
 
 @pytest.mark.parametrize("flag", ["--int8", "--checkpoint=w.pt"])
 def test_cli_serve_refuses_what_is_not_ported(flag):
+    """``--int8`` is not ported; ``--checkpoint`` of a file that does not exist
+    is refused the same way (usage error, exit code 2)."""
     from weaklysuperviseddl_tpu_torch.cli import main
 
     with pytest.raises(SystemExit) as e:

@@ -11,7 +11,7 @@ import pytest
 from test_torch_refine import single_torch_thread  # noqa: F401  (fixture)
 
 from weaklysuperviseddl_tpu_torch.cli import main
-from weaklysuperviseddl_tpu_torch.config import MaskConfig, MeshConfig, SegConfig, smoke_config
+from weaklysuperviseddl_tpu_torch.config import MaskConfig, MeshConfig, smoke_config
 from weaklysuperviseddl_tpu_torch.pipelines.weakly import run_weakly_supervised_alternating
 
 pytestmark = pytest.mark.usefixtures("single_torch_thread")
@@ -73,19 +73,11 @@ def test_crf_kwargs_follow_the_config():
     (dict(mesh=MeshConfig(data=2)), "one device"),
     (dict(mesh=MeshConfig(model=2)), "one device"),
     (dict(mask=MaskConfig(use_crf=True, crf_backend="grid")), "grid"),
-    (dict(seg=SegConfig(bn_frozen=True)), "bn_frozen"),
 ])
 def test_pipeline_refuses_what_is_not_ported(change, match):
     cfg = dataclasses.replace(smoke_config(), **change)
     with pytest.raises((ValueError, NotImplementedError), match=match):
         run_weakly_supervised_alternating(cfg, device="cpu")
-
-
-def test_pipeline_refuses_checkpoints():
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        run_weakly_supervised_alternating(smoke_config(), checkpoint_dir="x", device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        run_weakly_supervised_alternating(smoke_config(), resume=True, device="cpu")
 
 
 def test_cli_rejects_stray_arguments(capsys):

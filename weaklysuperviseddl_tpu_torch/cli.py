@@ -2,15 +2,26 @@
 weaklysuperviseddl_tpu/cli.py):
 
     python -m weaklysuperviseddl_tpu_torch weakly [--alternating] [--smoke] [--device cpu]
-        [--timings-out PATH] [--data.image_size 224 --seg.epochs 5 ...]
+        [--checkpoint-dir DIR [--resume]] [--timings-out PATH]
+        [--data.image_size 224 --seg.epochs 5 ...]
+    python -m weaklysuperviseddl_tpu_torch supervised [--smoke] [--device cpu] [--seg.epochs 5 ...]
+    python -m weaklysuperviseddl_tpu_torch ablations [--smoke] [--device cpu] [...]
     python -m weaklysuperviseddl_tpu_torch serve [--smoke] [--device cpu] [--port 8765]
+        [--checkpoint PATH]
     python -m weaklysuperviseddl_tpu_torch client --url http://host:8765 --image photo.jpg
 
-``weakly`` and ``serve`` run on the card unless ``--device cpu`` is given,
-in float32 with TF32 off for cuDNN convolutions and matmuls. ``weakly`` takes
-dotted overrides onto ``config.ExperimentConfig`` (any depth:
-``--alternating.refine.num_steps 10``), prints the metrics as one JSON line,
-and with ``--timings-out`` writes the per-phase record of the run.
+``weakly``, ``supervised``, ``ablations`` and ``serve`` run on the card
+unless ``--device cpu`` is given, in float32 with TF32 off for cuDNN
+convolutions and matmuls. The training commands take dotted overrides onto
+``config.ExperimentConfig`` (any depth: ``--alternating.refine.num_steps
+10``) and print their result as one JSON line. ``weakly --checkpoint-dir``
+snapshots every alternation; ``--resume`` continues from the latest snapshot
+(and implies ``--alternating``); ``--timings-out`` writes the per-phase
+record of the run. ``ablations`` runs the reference's grid with an untrained
+classifier (``--smoke``: its first point, one repeat) and prints the last
+summary. ``serve --checkpoint`` serves the DeepLabV3 weights of a seg state
+file the port wrote (``utils/checkpoint.save_state`` of a seg state, or a
+snapshot's ``state.pt``).
 """
 
 from __future__ import annotations
@@ -21,44 +32,65 @@ import os
 import sys
 
 
+def _config(args, parser, extra):
+    """``--smoke`` or the default config, with the dotted overrides in ``extra``."""
+    from weaklysuperviseddl_tpu_torch.config import ExperimentConfig, apply_overrides, smoke_config
+
+    overrides = {}
+    it = iter(extra)
+    for token in it:
+        if not token.startswith("--"):
+            parser.error(f"{args.command}: unexpected argument {token!r}")
+        value = next(it, None)
+        if value is None:
+            parser.error(f"{args.command}: {token} needs a value")
+        overrides[token[2:]] = value
+    return apply_overrides(smoke_config() if args.smoke else ExperimentConfig(), overrides)
+
+
+def _device(args):
+    """The run's device, with TF32 off: the port computes in float32."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.device import resolve_device
+
+    device = resolve_device(args.device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return device
+
+
 def _weakly(args, parser, extra) -> int:
     import dataclasses
     import time
 
     import torch
 
-    from weaklysuperviseddl_tpu_torch.config import ExperimentConfig, apply_overrides, smoke_config
-    from weaklysuperviseddl_tpu_torch.device import resolve_device
     from weaklysuperviseddl_tpu_torch.pipelines.weakly import (
         run_weakly_supervised,
         run_weakly_supervised_alternating,
     )
     from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch
 
-    overrides = {}
-    it = iter(extra)
-    for token in it:
-        if not token.startswith("--"):
-            parser.error(f"weakly: unexpected argument {token!r}")
-        value = next(it, None)
-        if value is None:
-            parser.error(f"weakly: {token} needs a value")
-        overrides[token[2:]] = value
-    cfg = apply_overrides(smoke_config() if args.smoke else ExperimentConfig(), overrides)
-    device = resolve_device(args.device)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _config(args, parser, extra)
+    device = _device(args)
     sw = Stopwatch(device)
     t0 = time.perf_counter()
-    if args.alternating:
-        result = run_weakly_supervised_alternating(cfg, stopwatch=sw, device=device)
+    if args.alternating or args.resume:
+        result = run_weakly_supervised_alternating(cfg, checkpoint_dir=args.checkpoint_dir,
+                                                   resume=args.resume, stopwatch=sw,
+                                                   device=device)
+    elif args.checkpoint_dir:
+        parser.error("weakly: --checkpoint-dir snapshots the alternating loop; "
+                     "add --alternating")
     else:
         result = run_weakly_supervised(cfg, stopwatch=sw, device=device)
     wall = time.perf_counter() - t0
     if args.timings_out:
         record = {
             "cmd": "python -m weaklysuperviseddl_tpu_torch weakly"
-                   + (" --alternating" if args.alternating else ""),
+                   + (" --alternating" if args.alternating else "")
+                   + (" --resume" if args.resume else ""),
             "config": dataclasses.asdict(cfg),
             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else str(device),
             "wall_clock_s": round(wall, 2),
@@ -81,28 +113,61 @@ def _weakly(args, parser, extra) -> int:
     return 0
 
 
-def _serve(args, parser) -> int:
-    import numpy as np
+def _supervised(args, parser, extra) -> int:
+    from weaklysuperviseddl_tpu_torch.pipelines.supervised import run_supervised_training
+
+    cfg = _config(args, parser, extra)
+    _, metrics = run_supervised_training(cfg, device=_device(args))
+    print(json.dumps(metrics))
+    return 0
+
+
+def _ablations(args, parser, extra) -> int:
+    from weaklysuperviseddl_tpu_torch.pipelines.ablations import (
+        default_grid,
+        run_ablation_experiment,
+    )
+    from weaklysuperviseddl_tpu_torch.pipelines.weakly import build_classifier
+
+    cfg = _config(args, parser, extra)
+    model = build_classifier(cfg, _device(args))
+    grid = default_grid()[:1] if args.smoke else default_grid()
+    results = run_ablation_experiment(grid, model, cfg, num_repeats=1 if args.smoke else 3)
+    print(json.dumps(results[-1]))
+    return 0
+
+
+def serve_model(smoke: bool, checkpoint: str | None = None):
+    """The served DeepLabV3 (2 classes; ResNet-50 at width 1, or ResNet-18 at
+    width 0.25 with ``smoke``), on the CPU: the weights of ``checkpoint`` (a
+    seg state file the port wrote), else seeded random ones. Raises
+    ``ValueError`` when the checkpoint's weights do not fit."""
     import torch
 
-    from weaklysuperviseddl_tpu_torch.device import resolve_device
     from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
     from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
+    from weaklysuperviseddl_tpu_torch.utils.checkpoint import load_model_weights
+
+    model = DeepLabV3(num_classes=2, backbone_depth=18 if smoke else 50,
+                      width_multiplier=0.25 if smoke else 1.0)
+    if checkpoint:
+        return load_model_weights(checkpoint, model)
+    return init_weights(model, torch.Generator().manual_seed(0))
+
+
+def _serve(args, parser) -> int:
+    import numpy as np
+
     from weaklysuperviseddl_tpu_torch.pipelines.serve import MaskClient, Predictor
 
     if args.int8:
         parser.error("--int8 is not ported yet (it waits for the port of ops/quant.py)")
-    if args.checkpoint:
-        parser.error("--checkpoint is not ported yet (it waits for the port of "
-                     "utils/checkpoint.py)")
-    device = resolve_device(args.device)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
+    device = _device(args)
     size = 48 if args.smoke else args.size
-    model = DeepLabV3(num_classes=2, backbone_depth=18 if args.smoke else 50,
-                      width_multiplier=0.25 if args.smoke else 1.0)
-    init_weights(model, torch.Generator().manual_seed(0))
+    try:
+        model = serve_model(args.smoke, args.checkpoint)
+    except (OSError, ValueError) as e:  # no such file, or not a seg state that fits
+        parser.error(f"serve --checkpoint: {e}")
     pred = Predictor(model, size=size, max_batch=2 if args.smoke else args.max_batch,
                      packed=args.packed, device=device)
     pred.warmup(all_buckets=True)
@@ -160,22 +225,30 @@ def _client(args, parser) -> int:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="weaklysuperviseddl_tpu_torch")
-    parser.add_argument("command", choices=["weakly", "serve", "client"])
+    parser.add_argument("command", choices=["weakly", "supervised", "ablations", "serve",
+                                            "client"])
     parser.add_argument("--smoke", action="store_true",
-                        help="weakly: config.smoke_config(); serve: depth 18, width 0.25, "
-                             "48², max_batch 2, one self-request, then exit")
+                        help="weakly, supervised: config.smoke_config(); ablations: that "
+                             "config, the grid's first point, one repeat; serve: depth 18, "
+                             "width 0.25, 48², max_batch 2, one self-request, then exit")
     parser.add_argument("--device", default=None,
-                        help="weakly, serve: torch device (default: the card; 'cpu' to run "
-                             "on the CPU)")
+                        help="weakly, supervised, ablations, serve: torch device (default: "
+                             "the card; 'cpu' to run on the CPU)")
     parser.add_argument("--alternating", action="store_true",
                         help="weakly: run the alternating train↔refine loop after the "
                              "initial cycle")
+    parser.add_argument("--checkpoint-dir", default=None,
+                        help="weakly --alternating: snapshot directory (train state and "
+                             "mask store after every alternation)")
+    parser.add_argument("--resume", action="store_true",
+                        help="weakly: restore the latest snapshot in --checkpoint-dir and "
+                             "continue the alternating loop")
     parser.add_argument("--timings-out", default=None,
                         help="weakly: write a per-phase seconds and img/s JSON record of "
                              "this run")
     parser.add_argument("--checkpoint", default=None,
-                        help="serve: weights to load (not ported yet); random init "
-                             "if omitted")
+                        help="serve: a seg state file the port wrote (save_state, or a "
+                             "snapshot's state.pt); random init if omitted")
     parser.add_argument("--port", type=int, default=8765)
     parser.add_argument("--size", type=int, default=256)
     parser.add_argument("--max-batch", type=int, default=64)
@@ -196,6 +269,10 @@ def main(argv=None) -> int:
     args, extra = parser.parse_known_args(list(sys.argv[1:] if argv is None else argv))
     if args.command == "weakly":
         return _weakly(args, parser, extra)
+    if args.command == "supervised":
+        return _supervised(args, parser, extra)
+    if args.command == "ablations":
+        return _ablations(args, parser, extra)
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
     if args.command == "serve":

@@ -6,6 +6,9 @@ keys sorted for alignment) and an in-memory path, which is what the training
 loop uses. PNGs are written with PIL, synchronously, imported only when a
 directory is given. The JAX package's native asynchronous PNG writer (and so
 its ``flush`` barrier) is not ported.
+
+``save_arrays``/``load_arrays`` keep the whole store (keys, images, masks) in
+one ``.npz`` file and need no PIL: the checkpoint snapshots use them.
 """
 
 from __future__ import annotations
@@ -66,6 +69,25 @@ class MaskStore:
         ks = self.keys()
         return (np.stack([self._images[k] for k in ks]),
                 np.stack([self._masks[k] for k in ks]), ks)
+
+    def save_arrays(self, path: str):
+        """Write keys, images and masks to one ``.npz`` file at ``path``,
+        synced to disk before it returns."""
+        images, masks, keys = self.as_arrays()
+        with open(path, "wb") as f:
+            np.savez(f, keys=np.asarray(keys, dtype=str), images=images, masks=masks)
+            f.flush()
+            os.fsync(f.fileno())
+
+    @classmethod
+    def load_arrays(cls, path: str) -> "MaskStore":
+        """Read back a store written by ``save_arrays`` (in memory)."""
+        store = cls(directory=None)
+        with np.load(path, allow_pickle=False) as z:
+            for key, image, mask in zip(z["keys"].tolist(), z["images"], z["masks"]):
+                store._images[key] = image
+                store._masks[key] = mask
+        return store
 
     @classmethod
     def load(cls, directory: str) -> "MaskStore":

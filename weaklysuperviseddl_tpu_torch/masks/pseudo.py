@@ -129,22 +129,35 @@ def _derive_batch(raw: torch.Tensor, cam: torch.Tensor, cam_thresh: float,
 
 def masks_from_cams(resident: ResidentCams, cam_thresh: float = 0.3,
                     keep_largest_masks: bool = True, use_crf: bool = False,
-                    crf_kwargs: dict | None = None, store_dir: str | None = None) -> MaskStore:
+                    crf_kwargs: dict | None = None, store_dir: str | None = None,
+                    order: np.ndarray | None = None,
+                    max_images: int | None = None) -> MaskStore:
     """Stage 2: threshold → (optional dense CRF, ``crf_kwargs`` passed to
     ``densecrf_inference``) → largest component, batch by batch; results land
-    in a MaskStore keyed by zero-padded running id."""
+    in a MaskStore keyed by zero-padded running id.
+
+    ``order`` ([M] indices): derive the masks, and take the store images, in
+    this order (the ablation grid's shuffled loader order per repeat), as if
+    the CAMs had been extracted from a loader in that order. ``max_images``
+    caps the output after ordering (the reference caps its shuffled stream,
+    PsuedoMasks.py:34)."""
     store = MaskStore(directory=store_dir)
-    n = len(resident)
+    n_all = len(resident)
+    order = np.arange(n_all) if order is None else np.asarray(order, np.int64)
+    if max_images is not None:
+        order = order[:max_images]
+    n = order.shape[0]
     if n == 0:
         return store
-    idx_table = torch.from_numpy(_index_table(n, resident.batch_size)).to(resident.cams.device)
+    dev = resident.cams.device
+    idx_table = torch.from_numpy(order[_index_table(n, resident.batch_size)]).to(dev)
     crf_kwargs = dict(crf_kwargs or {})
     masks = torch.cat([_derive_batch(resident.images_raw[idx] if use_crf else None,
                                      resident.cams[idx], cam_thresh, keep_largest_masks,
                                      use_crf, resident.image_size, crf_kwargs)
                        for idx in idx_table])[:n]
     masks_np = masks.cpu().numpy()
-    images_np = resident.store_images.cpu().numpy()
+    images_np = resident.store_images[torch.from_numpy(order).to(dev)].cpu().numpy()
     for img_id in range(n):
         store.put(f"{img_id:05d}", images_np[img_id], masks_np[img_id])
     return store

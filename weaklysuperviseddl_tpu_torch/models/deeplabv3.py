@@ -12,6 +12,15 @@ torchvision's ``deeplabv3_resnet50`` layout and state-dict keys:
 
 The JAX ``_AtrousTapConv`` is a TPU layout of the same zero-padded dilated
 convolution; here it is ``Conv2d(padding=rate, dilation=rate)``.
+
+The ASPP's dropout (``Dropout``) draws its mask from a generator of its own on
+the input's device, never from torch's global random state: the training loop
+seeds it before each step (``seed_dropout``), so a run depends on its seed
+alone, as in the JAX package (whose keys come from the training call's seed).
+``bn_frozen=True`` is the JAX model's frozen-BN mode: in training every
+BatchNorm of the backbone, the ASPP and the head uses its running statistics
+and leaves them untouched, while its affines still learn and the dropout
+stays active. The default (False) is the reference's semantics.
 """
 
 from __future__ import annotations
@@ -23,6 +32,45 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from weaklysuperviseddl_tpu_torch.models.resnet import BatchNorm2d, ResNetBackbone
+
+
+class Dropout(nn.Module):
+    """``nn.Dropout``'s function (each unit kept with probability 1 − p and
+    scaled by 1/(1 − p) in training, the identity otherwise; no state-dict
+    entries) with the mask drawn from ``self.generator``, a generator on the
+    input's device. ``manual_seed`` (re)seeds it; an unseeded module, or one
+    whose generator is on another device, seeds a new one with 0 at its first
+    training forward. A copy or a pickle of the module leaves the generator
+    out, so it starts unseeded."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def __getstate__(self):
+        return {**self.__dict__, "generator": None}
+
+    def manual_seed(self, seed: int, device: torch.device):
+        if self.generator is None or self.generator.device != device:
+            self.generator = torch.Generator(device=device)
+        self.generator.manual_seed(seed)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None or self.generator.device != x.device:
+            self.manual_seed(0, x.device)
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
+        return x * keep.div_(1.0 - self.p)
+
+
+def seed_dropout(model: nn.Module, seed: int):
+    """Seed every ``Dropout`` of ``model`` on the device of its parameters."""
+    device = next(model.parameters()).device
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.manual_seed(seed, device)
 
 
 def _conv_bn_relu(cin, cout, kernel=1, rate=1):
@@ -40,7 +88,7 @@ class ASPP(nn.Module):
         branches.append(nn.Sequential(nn.AdaptiveAvgPool2d(1), *_conv_bn_relu(in_ch, features)))
         self.convs = nn.ModuleList(branches)
         self.project = nn.Sequential(*_conv_bn_relu(len(branches) * features, features),
-                                     nn.Dropout(dropout))
+                                     Dropout(dropout))
 
     def forward(self, x):
         out = [m(x) for m in self.convs[:-1]]
@@ -53,7 +101,7 @@ class DeepLabV3(nn.Module):
     ``logits_nhwc`` is the same function in the JAX layout."""
 
     def __init__(self, num_classes: int = 2, backbone_depth: int = 50,
-                 width_multiplier: float = 1.0):
+                 width_multiplier: float = 1.0, bn_frozen: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.backbone = ResNetBackbone(backbone_depth, width_multiplier,
@@ -64,6 +112,9 @@ class DeepLabV3(nn.Module):
             *_conv_bn_relu(head_ch, head_ch, 3),
             nn.Conv2d(head_ch, num_classes, 1),
         )
+        for m in self.modules():
+            if isinstance(m, BatchNorm2d):
+                m.frozen = bn_frozen
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.classifier(self.backbone(x)["layer4"])

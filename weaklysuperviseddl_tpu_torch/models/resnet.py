@@ -32,11 +32,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     running = 0.9·running + 0.1·batch, where the batch variance is the biased
     one (torch's own module uses the unbiased one, which at the ASPP pooling
     branch, 4 values per channel at batch 4, is 4/3 too large). Eval mode and
-    the state-dict keys are ``nn.BatchNorm2d``'s."""
+    the state-dict keys are ``nn.BatchNorm2d``'s.
+
+    ``frozen`` (set by ``DeepLabV3(bn_frozen=True)``): the layer normalises
+    with its running statistics and leaves them untouched even in training
+    mode; gradients still reach its affine weight and bias."""
+
+    frozen = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
+        if not self.training or self.frozen:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             dims = [0] + list(range(2, x.ndim))

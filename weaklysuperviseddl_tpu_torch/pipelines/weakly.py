@@ -6,10 +6,12 @@ Every entry point runs on the card unless ``device="cpu"`` is given, and
 raises without a card. The port runs on one device: a ``MeshConfig`` other
 than data ∈ {-1, 1}, model == 1 raises. ``mask.use_crf`` runs the dense CRF
 with the "attention" or "subsampled" backend (the bilateral filter is a CUDA
-kernel on the card); ``seg.loss_fn`` is "cross_entropy" or "lovasz_softmax".
-Not ported yet: ``resume`` and ``checkpoint_dir`` (``utils/checkpoint.py``),
-the CRF's other backends, ``seg.bn_frozen`` and compute types other than
-float32.
+kernel on the card); ``seg.loss_fn`` is "cross_entropy" or "lovasz_softmax";
+``seg.bn_frozen`` trains DeepLabV3 with frozen BatchNorm statistics. With a
+``checkpoint_dir`` the alternating loop snapshots every alternation there,
+and ``resume=True`` continues from the latest snapshot
+(``utils/checkpoint.py``). Not ported yet: the CRF's other backends and
+compute types other than float32.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from weaklysuperviseddl_tpu_torch.train.segmentation import (
     evaluate_segmentation_dataset,
     train_segmentation_model,
 )
+from weaklysuperviseddl_tpu_torch.utils.checkpoint import latest_alternation, restore_alternation
 from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch
 
 
@@ -55,8 +58,6 @@ def check_supported(cfg: ExperimentConfig):
                          "parallel/mesh.py, which is not ported yet")
     if cfg.classifier.dtype != "float32" or cfg.seg.dtype != "float32":
         raise NotImplementedError("the port computes in float32 only so far")
-    if cfg.seg.bn_frozen:
-        raise NotImplementedError("seg.bn_frozen is not ported yet")
     if cfg.seg.loss_fn not in LOSSES:
         raise ValueError(f"unknown seg.loss_fn {cfg.seg.loss_fn!r}; expected one of {LOSSES}")
     if cfg.mask.use_crf and cfg.mask.crf_backend not in EXACT_BACKENDS:
@@ -83,6 +84,21 @@ def build_classifier(cfg: ExperimentConfig, device) -> CamClassifier:
     return model.to(device)
 
 
+def build_seg_model(cfg: ExperimentConfig) -> DeepLabV3:
+    return DeepLabV3(num_classes=cfg.seg.num_classes, backbone_depth=cfg.seg.backbone_depth,
+                     width_multiplier=cfg.seg.width_multiplier, bn_frozen=cfg.seg.bn_frozen)
+
+
+def load_test_arrays(cfg: ExperimentConfig, device):
+    """The test split stacked once and uploaded: (images uint8, trimaps uint8)."""
+    d = cfg.data
+    test_ds = download_data(d.root, split="test", synthetic_size=max(16, d.synthetic_size // 4),
+                            image_size=d.image_size, seed=d.seed, num_classes=d.num_classes)
+    test_images, _, test_trimaps = stack_dataset(test_ds)
+    return (torch.from_numpy(test_images).to(device),
+            torch.from_numpy(test_trimaps).to(device))
+
+
 def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch | None = None,
                           device=None) -> WeaklySupervisedResult:
     """The weakly-supervised cycle at the configured scale: trained models,
@@ -96,8 +112,7 @@ def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch
         train_ds, val_ds = load_split_data(
             d.root, train_ratio=d.train_ratio, seed=d.seed, synthetic_size=d.synthetic_size,
             image_size=d.image_size, num_classes=d.num_classes)
-        test_ds = download_data(d.root, split="test", synthetic_size=max(16, d.synthetic_size // 4),
-                                image_size=d.image_size, seed=d.seed, num_classes=d.num_classes)
+        test_arrays = load_test_arrays(cfg, dev)
 
     # --- stage 1: frozen-backbone classifier ---------------------------------
     model = build_classifier(cfg, dev)
@@ -124,9 +139,8 @@ def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch
     log(f"Pseudo masks generated: {len(store)}")
 
     # --- stage 4: DeepLabV3 on the pseudo-masks -------------------------------
-    seg_model = DeepLabV3(num_classes=cfg.seg.num_classes, backbone_depth=cfg.seg.backbone_depth,
-                          width_multiplier=cfg.seg.width_multiplier)
-    seg_state = create_seg_state(seg_model, seed=cfg.seed + 1, lr=cfg.seg.lr, device=dev)
+    seg_state = create_seg_state(build_seg_model(cfg), seed=cfg.seed + 1, lr=cfg.seg.lr,
+                                 device=dev)
     images, masks, _ = store.as_arrays()
     with sw.phase("seg_training", images=len(store) * cfg.seg.epochs):
         seg_state, final_loss = train_segmentation_model(
@@ -134,9 +148,7 @@ def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch
             batch_size=cfg.seg.batch_size, seg_size=d.seg_size, seed=cfg.seed, log=log)
 
     # --- stage 5: eval against the true trimaps ------------------------------
-    test_images, _, test_trimaps = stack_dataset(test_ds)
-    test_arrays = (torch.from_numpy(test_images).to(dev), torch.from_numpy(test_trimaps).to(dev))
-    with sw.phase("eval", images=len(test_ds)):
+    with sw.phase("eval", images=int(test_arrays[0].shape[0])):
         avg_iou, avg_acc = evaluate_segmentation_dataset(
             seg_state.model, *test_arrays, batch_size=d.eval_batch_size, seg_size=d.seg_size,
             eval_size=d.image_size, log=log)
@@ -148,15 +160,34 @@ def run_weakly_supervised_alternating(cfg: ExperimentConfig, checkpoint_dir: str
                                       resume: bool = False, stopwatch: Stopwatch | None = None,
                                       log=print, device=None) -> WeaklySupervisedResult:
     """The whole main path: the cycle above, then the alternating train ↔
-    refine loop over the pseudo-mask store with an eval per alternation."""
-    if resume or checkpoint_dir is not None:
-        raise NotImplementedError("resume and checkpoint_dir need utils/checkpoint.py, "
-                                  "which is not ported yet")
+    refine loop over the pseudo-mask store with an eval per alternation.
+
+    With ``checkpoint_dir``, every alternation is snapshotted there. With
+    ``resume=True`` the cycle is skipped: DeepLabV3 and its optimizer are
+    built untrained, the latest snapshot in ``checkpoint_dir`` (train state
+    and mask store) is restored into them, and the loop continues at the
+    next alternation, as if the run had never stopped."""
+    if resume and checkpoint_dir is None:
+        raise ValueError("resume=True requires checkpoint_dir (the snapshot directory "
+                         "written by a previous run with --checkpoint-dir)")
+    if resume and latest_alternation(checkpoint_dir) is None:
+        raise FileNotFoundError(f"resume=True but no restorable alternation snapshots under "
+                                f"{checkpoint_dir!r}; run without --resume to start fresh")
     check_supported(cfg)
     dev = resolve_device(device)
     sw = stopwatch if stopwatch is not None else Stopwatch(dev)
     d = cfg.data
-    result = run_weakly_supervised(cfg, log=log, stopwatch=sw, device=dev)
+    start_iteration = 0
+    if resume:
+        seg_state = create_seg_state(build_seg_model(cfg), seed=cfg.seed + 1, lr=cfg.seg.lr,
+                                     device=dev)
+        seg_state, store, start_iteration = restore_alternation(checkpoint_dir, seg_state)
+        with sw.phase("data", images=0):
+            test_arrays = load_test_arrays(cfg, dev)
+        log(f"Resumed from {checkpoint_dir} at alternation {start_iteration}")
+        result = WeaklySupervisedResult(None, seg_state, store, {}, test_arrays)
+    else:
+        result = run_weakly_supervised(cfg, log=log, stopwatch=sw, device=dev)
     test_arrays = result.test_arrays
 
     def eval_fn(state):
@@ -167,7 +198,8 @@ def run_weakly_supervised_alternating(cfg: ExperimentConfig, checkpoint_dir: str
     trajectory: list = []
     state, store = run_alternating_training(
         result.seg_state, result.mask_store, cfg, eval_fn=eval_fn,
-        eval_images=int(test_arrays[0].shape[0]), stopwatch=sw, trajectory=trajectory, log=log)
+        eval_images=int(test_arrays[0].shape[0]), checkpoint_dir=checkpoint_dir,
+        start_iteration=start_iteration, stopwatch=sw, trajectory=trajectory, log=log)
     iou, acc = eval_fn(state)
     result.seg_state, result.mask_store = state, store
     result.metrics.update({"alt_iou": iou, "alt_acc": acc, "trajectory": trajectory})

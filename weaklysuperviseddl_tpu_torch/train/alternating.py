@@ -8,7 +8,9 @@ run and the masks stay on the device across training and sweeps. A sweep
 walks the store in order in batches (gather → preprocess → normalise →
 DeepLabV3 without gradient → softmax → refinement → masks written back in
 place); duplicate indices of the padded tail write identical values.
-Checkpointing (``utils/checkpoint.py``) is not ported yet.
+With a ``checkpoint_dir``, each alternation ends with a snapshot of the train
+state and the store (``utils/checkpoint.save_alternation``);
+``start_iteration`` continues a run from one (``restore_alternation``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from weaklysuperviseddl_tpu_torch.train.segmentation import (
     _normalize_images,
     train_segmentation_model,
 )
+from weaklysuperviseddl_tpu_torch.utils.checkpoint import save_alternation
 from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch
 
 
@@ -94,11 +97,15 @@ def refine_store(model: torch.nn.Module, store: MaskStore, cfg: RefineConfig,
 
 def run_alternating_training(state: SegTrainState, store: MaskStore, cfg: ExperimentConfig,
                              eval_fn=None, eval_images: int = 0,
+                             checkpoint_dir: str | None = None, start_iteration: int = 0,
                              stopwatch: Stopwatch | None = None,
                              trajectory: list | None = None, log=print):
-    """Outer alternating loop. ``eval_fn(state) -> (iou, acc)`` runs once per
+    """Outer alternating loop over alternations ``start_iteration`` to
+    ``num_alternations - 1``. ``eval_fn(state) -> (iou, acc)`` runs once per
     alternation; with ``trajectory`` a list, each alternation's IoU/acc is
-    appended. ``stopwatch`` times the phases of this loop."""
+    appended. With ``checkpoint_dir``, each alternation is snapshotted there
+    after its masks are written back. ``stopwatch`` times the phases of this
+    loop."""
     sw = stopwatch if stopwatch is not None else Stopwatch()
     alt: AlternatingConfig = cfg.alternating
     seg_size = cfg.data.seg_size
@@ -108,7 +115,7 @@ def run_alternating_training(state: SegTrainState, store: MaskStore, cfg: Experi
     idx_table = torch.from_numpy(_sweep_index_table(len(keys), cfg.seg.batch_size)).to(dev)
     n_store = len(keys)
 
-    for iteration in range(alt.num_alternations):
+    for iteration in range(start_iteration, alt.num_alternations):
         with sw.phase("seg_training", images=n_store * alt.epochs_per_round):
             state, _ = train_segmentation_model(
                 state, dev_images, dev_masks, loss_fn=cfg.seg.loss_fn,
@@ -130,5 +137,8 @@ def run_alternating_training(state: SegTrainState, store: MaskStore, cfg: Experi
             masks_np = dev_masks.cpu().numpy()
             for j, k in enumerate(keys):
                 store.update_mask(k, masks_np[j])
+        if checkpoint_dir is not None:
+            with sw.phase("checkpoint"):
+                save_alternation(checkpoint_dir, iteration, state, store)
     log("Alternating training and pseudo mask updates completed.")
     return state, store

@@ -60,6 +60,25 @@ class Adam:
         for p in self.params:
             p.grad = None
 
+    def state_dict(self) -> dict:
+        """The moments (as lists aligned with the parameters) and the step
+        count, as tensors and Python ints (``torch.load(weights_only=True)``
+        reads them back)."""
+        return {"m": list(self.m), "v": list(self.v), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        """Copy a ``state_dict()`` into this optimizer's moments (on their own
+        device) and counters. It must come from an optimizer over parameters
+        of the same shapes in the same order."""
+        for name in ("m", "v"):
+            mine, theirs = getattr(self, name), state[name]
+            if len(mine) != len(theirs) or any(a.shape != b.shape for a, b in zip(mine, theirs)):
+                raise ValueError(f"optimizer state {name!r} does not fit these parameters")
+            for a, b in zip(mine, theirs):
+                a.copy_(b)
+        self.count = int(state["count"])
+
 
 class GuardedAdam(Adam):
     def __init__(self, params, lr: float = 1e-4):
@@ -80,3 +99,12 @@ class GuardedAdam(Adam):
         if apply:
             self._apply(grads)
         return apply
+
+    def state_dict(self) -> dict:
+        return {**super().state_dict(), "notfinite_count": self.notfinite_count,
+                "total_notfinite": self.total_notfinite}
+
+    def load_state_dict(self, state: dict):
+        super().load_state_dict(state)
+        self.notfinite_count = int(state["notfinite_count"])
+        self.total_notfinite = int(state["total_notfinite"])

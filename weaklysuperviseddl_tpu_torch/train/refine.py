@@ -15,6 +15,10 @@ with its default plan, as the JAX package calls ``pallas_refine``: "v1sym"
 for the binary masks of the cycle, "v1" otherwise. ``use_pallas=False``
 forces the plain version, as it forces XLA in the JAX package. The kernel
 takes any H×W, so there is no size fallback.
+
+``refine_pseudo_masks`` is the model-facing form (the reference's
+``refine_pseudo_mask`` signature, :709): S is the eval-mode model's softmax,
+without gradient.
 """
 
 from __future__ import annotations
@@ -47,3 +51,19 @@ def refine_from_soft_predictions(
         return refine_cuda(S.float().contiguous(), images.float().contiguous(),
                            masks.contiguous(), **kw)
     return refine_plain(S, images, masks, **kw)
+
+
+def refine_pseudo_masks(model: torch.nn.Module, images: torch.Tensor, masks: torch.Tensor,
+                        **kwargs):
+    """S = softmax of ``model``'s logits on the normalised [B,H,W,3]
+    ``images`` (eval mode, no gradient; the model's mode is restored after),
+    then ``refine_from_soft_predictions(S, images, masks, **kwargs)``."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            logits = model(images.permute(0, 3, 1, 2))
+            S = torch.softmax(logits, dim=1).permute(0, 2, 3, 1).contiguous()
+    finally:
+        model.train(was_training)
+    return refine_from_soft_predictions(S, images, masks, **kwargs)
