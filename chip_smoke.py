@@ -22,7 +22,19 @@ Phases, one JSON line each:
                served in), predict_many throughput, request latency, and a
                stage breakdown of one batch of 64. The kernel's launch count is
                reset just before this main path is driven and read just after.
-  5. refine  - the refinement kernel against its plain PyTorch version on the
+  5. serve_int8 - the same model quantized by the port's int8 PTQ
+               (Predictor.quantize on 64 synthetic pets, as the CLI without
+               --calib-dir): 77 sites (58 conv, 19 ASPP taps); one forward at
+               batch 64 with every site's Q1 gather and Q2 epilogue held
+               bit-equal to their plain versions and the int32 GEMM to a float64
+               product, each timed at its shape beside its bound; device ms of
+               the int8 forward by kind of kernel; the path (predict_many over
+               128 pets and 4 MaskServer requests, /healthz int8) with the
+               counts reset just before and read just after; the card's int8
+               masks against the CPU port's under the same calibration file
+               (>= 0.995); int8 against float32 masks; predict_many img/s and
+               the model's ms an image, float32 and int8, at every bucket.
+  6. refine  - the refinement kernel against its plain PyTorch version on the
                card: at [2,16,16], [1,20,24] and [2,37,53], both losses, C=2 and
                3, windows 5 and 3, lr 1e-2 and 0.2 (where masks move), plan v1
                and every other plan (v1sym at C=2, v2, v2_aff), masks exactly
@@ -40,7 +52,7 @@ Phases, one JSON line each:
                v1sym and v2_aff (v2 runs v1's kernel) at [4,256,256] ncut 20
                steps, [8,256,256] 10 steps and [4,256,256] boundary 75 steps,
                beside the bound.
-  6. window  - the window-loss kernels (sum and gradient, through the autograd
+  7. window  - the window-loss kernels (sum and gradient, through the autograd
                Function) against the plain losses on the card: the fuzz shapes
                [2,11,13,2] w3, [2,16,24,3] w5, [2,9,32,2] w7 and the full width
                [8,256,256,2] w5 on synthetic pets, both losses, values rtol 1e-5,
@@ -54,7 +66,7 @@ Phases, one JSON line each:
                after (95 each); each step's W against the plain loss (rtol
                1e-5), masks against refine_plain's as in the refine phase, loss
                rtol 1e-4; timed beside K1.
-  7. weakly  - the training main path through run_weakly_supervised_alternating
+  8. weakly  - the training main path through run_weakly_supervised_alternating
                at full width: ResNet-50 CAM classifier (37 classes, 224², layer4
                dilated) → LayerCAM → pseudo-masks → DeepLabV3-ResNet50 os8
                (256², batch 4) ↔ refinement (256², C=2, window 5, 20 steps,
@@ -66,7 +78,7 @@ Phases, one JSON line each:
                against the same weights on the CPU, at the path's lr and at lr
                0.1 (mask agreement >= 0.995), and a device-time breakdown of one
                training step.
-  8. crf     - the bilateral-filter kernel against its plain PyTorch version on
+  9. crf     - the bilateral-filter kernel against its plain PyTorch version on
                the card: ragged 531x187 with d 5 and C 1, 2, 3; d 20 with C 128;
                a batch of 3 with different features per image (rtol 1e-4, atol
                1e-5); the reference's magnitudes against a float64 sum (max
@@ -77,7 +89,7 @@ Phases, one JSON line each:
                Times with CUDA events beside the bound, and the host's part of
                a call and events around calls traced by the profiler (where the
                profiler's kernel time and the events' disagree).
-  9. cam_fusion - the LayerCAM-fusion kernel against its plain version at the
+ 10. cam_fusion - the LayerCAM-fusion kernel against its plain version at the
                full-width classifier's layer3 and layer4 shapes (its own
                activations and gradients on synthetic pets) and at a ragged
                [2,130,7,9] (atol 1e-5); then the path: layercam(fusion="pallas")
@@ -85,7 +97,7 @@ Phases, one JSON line each:
                count reset just before and read just after. Each shape's
                cluster size (CTAs an image) and the clusters the card holds at
                once; times and host time beside the bound.
- 10. weakly_crf - the CRF pseudo-mask path through
+ 11. weakly_crf - the CRF pseudo-mask path through
                run_weakly_supervised_alternating at full width: as weakly, with
                mask.use_crf (the reference's parameters: subsampled, stride 2, 5
                iterations, sigma 1/50/5, compat 2/10) and seg.loss_fn
@@ -96,7 +108,7 @@ Phases, one JSON line each:
                the kernel against the plain filter on the card (>= 0.999), the
                card against the CPU on 1 image (>= 0.999), and subsampled
                against attention per image (mean >= 0.99).
- 11. weakly_boundary - the reference's boundary-loss protocol
+ 12. weakly_boundary - the reference's boundary-loss protocol
                (AlternatingDirectionBoundaryLoss.py:153-206) through
                run_weakly_supervised_alternating at full width, set by the CLI's
                dotted overrides (refine.loss boundary, num_steps 75, lambda 0.5,
@@ -107,7 +119,7 @@ Phases, one JSON line each:
                (the uploaded masks against the store's after the run); then one
                refinement batch of 1 image on the card against the CPU with the
                same weights (>= 0.995).
- 12. weakly_resume - a copy of the weakly run's alt_000 (what a run stopped
+ 13. weakly_resume - a copy of the weakly run's alt_000 (what a run stopped
                after one alternation leaves) resumed through
                run_weakly_supervised_alternating(resume=True) at weakly's config:
                the restored state bit-equal to alt_000's files (model state
@@ -116,16 +128,18 @@ Phases, one JSON line each:
                before, read just after), the final masks >= 0.995 equal to the
                uninterrupted run's (bit equality reported: cuDNN's backward is
                not bitwise deterministic); snapshot MB and checkpoint seconds.
- 13. serve_checkpoint - Predictor(clean=True, packed=True) over the weakly
+ 14. serve_checkpoint - Predictor(clean=True, packed=True) over the weakly
                run's last snapshot, loaded by the CLI's loader, and over its
                in-memory final model: masks equal on one batch of 64 at 256²; K2
-               counted; a ResNet-50 state refused by the smoke ResNet-18.
- 14. supervised - run_supervised_training at full width (DeepLabV3-ResNet50,
+               counted; a ResNet-50 state refused by the smoke ResNet-18; then
+               the snapshot quantized to int8 (64 synthetic pets) and its
+               int8-vs-float32 agreement; Q1, Q2 and the GEMM counted.
+ 15. supervised - run_supervised_training at full width (DeepLabV3-ResNet50,
                256², batch 4, 128 synthetic pets), cut to 1 epoch and 1 test run:
                metrics finite and in [0, 1]; evaluate_multiclass_dataset of the
                trained model on the card against the CPU over 16 test images
                (within 0.005 on acc and IoU); training img/s.
- 15. ablations - run_ablation_experiment at full width with an untrained
+ 16. ablations - run_ablation_experiment at full width with an untrained
                classifier (as the CLI's), the grid's first point x 2 repeats,
                seg.epochs 1: K2's count reset just before and read just after
                (one launch per batch of 32 per run, image plan); the grid's
@@ -136,7 +150,9 @@ kernels line (each kernel's ``ms`` is the CUDA-event time of one call,
 ``back_to_back_ms`` the same over calls in a row, ``device_ms`` the summed
 kernel time per call from a torch.profiler trace, ``host_ms`` the wrapper's
 host time per call over calls in a row; the crf and refine phase
-lines add ``bound_share``, bound_ms / ms), and the last line
+lines add ``bound_share``, bound_ms / ms; Q1's and Q2's rows sum their calls
+over one int8 forward at batch 64, and Q1's carries the int32 GEMM's sums
+against its bound at 1979 TOPS), and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: no result is
 printed. Exits non-zero without a CUDA device.
 """
@@ -156,10 +172,12 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
+INT8_OPS_PER_S = 1979e12   # H100 SXM dense int8 tensor cores, NVIDIA data sheet
 # the reference's CRF parameters (AlternatingDirectionCutLoss.py:183-204) and
 # the config's default backend
-# the snapshots of the weakly and weakly_resume phases (about 0.5 GB each),
-# inside the checkout (gitignored) and removed when the script ends
+# the snapshots of the weakly and weakly_resume phases (about 0.5 GB each) and
+# serve_int8's calibration file, inside the checkout (gitignored) and removed
+# when the script ends
 CKPT_ROOT = pathlib.Path(__file__).resolve().parent / "chip_smoke_ckpt"
 CRF_REFERENCE = dict(gauss_sxy=1.0, gauss_compat=2.0, bilat_sxy=50.0, bilat_srgb=5.0,
                      bilat_compat=10.0, n_iters=5, bilat_backend="subsampled", key_stride=2)
@@ -638,6 +656,237 @@ def phase_serve():
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
          cc_launches_main_path=launches)
     return launches, raw_dev
+
+
+def reset_qconv_counts():
+    """The int8 serving path's counts (Q1, Q2 and the int32 GEMM calls) set to 0."""
+    from weaklysuperviseddl_tpu_torch.ops import qconv
+
+    for fn in (qconv.quantize_gather, qconv.dequant_epilogue, qconv.int8_gemm):
+        fn.launches = 0
+
+
+def qconv_counts() -> dict:
+    from weaklysuperviseddl_tpu_torch.ops import qconv
+
+    return {"quantize_gather": qconv.quantize_gather.launches,
+            "dequant_epilogue": qconv.dequant_epilogue.launches,
+            "int8_gemm": qconv.int8_gemm.launches}
+
+
+def pets(split: str, n: int, size: int, seed: int) -> np.ndarray:
+    """uint8 [n,size,size,3] synthetic pets (the CLI's calibration images)."""
+    from weaklysuperviseddl_tpu_torch.data.dataset import download_data
+
+    ds = download_data(None, split=split, synthetic_size=n, image_size=size, seed=seed)
+    return np.stack([np.asarray(ds.images[i], np.uint8) for i in range(n)])
+
+
+def checked_int8_forward(qmodel, x) -> dict:
+    """One forward of the int8 model on ``x`` with every site's Q1, GEMM and
+    Q2 call held against its plain version on the same inputs (bit-equal;
+    the GEMM against a float64 product, exact at these depths) and timed at
+    its shape: CUDA events and host time a call, the plain version's time,
+    and each one's bound. Returns the sums over the forward's calls."""
+    import torch
+
+    import weaklysuperviseddl_tpu_torch.ops.quant as quant
+    from weaklysuperviseddl_tpu_torch.ops import qconv
+
+    sums = {name: {"calls": 0, "ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "bytes": 0.0, "ops": 0.0, "max_abs_err": 0.0}
+            for name in ("quantize_gather", "int8_gemm", "dequant_epilogue")}
+    real = {"quantize_gather": quant.quantize_gather, "int8_gemm": quant.int8_gemm,
+            "dequant_epilogue": quant.dequant_epilogue}
+
+    def account(name, fn, plain, nbytes, ops, bound_ms, err):
+        s = sums[name]
+        s["calls"] += 1
+        s["ms"] += cuda_ms(fn, runs=10, warmup=2)
+        s["host_ms"] += host_ms(fn, runs=10, warmup=2)
+        s["plain_ms"] += cuda_ms(plain, runs=3, warmup=1)
+        s["bytes"] += nbytes
+        s["ops"] += ops
+        s["bound_ms"] += bound_ms
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+
+    def gather(xh, inv, g, Mp, Kp):
+        a = real["quantize_gather"](xh, inv, g, Mp, Kp)
+        want = qconv.quantize_gather_plain(xh, inv, g, Mp, Kp)
+        err = float((a.int() - want.int()).abs().max())
+        check(err == 0, f"quantize_gather differs from plain at {g}")
+        region = xh[:, g.y0:g.y0 + g.Ho, g.x0:g.x0 + g.Wo] if g.kh == 1 and g.stride == 1 else xh
+        nbytes = region.numel() * 4 + Mp * Kp
+        account("quantize_gather", lambda: real["quantize_gather"](xh, inv, g, Mp, Kp),
+                lambda: qconv.quantize_gather_plain(xh, inv, g, Mp, Kp), nbytes, 0,
+                nbytes / HBM_BYTES_PER_S * 1e3, err)
+        return a
+
+    def gemm(a, w):
+        acc = real["int8_gemm"](a, w)
+        exact = (a.double() @ w.double().t()).to(torch.int32)
+        check(torch.equal(acc, exact), f"int8 GEMM {tuple(a.shape)} x {tuple(w.shape)} not exact")
+        (Mp, Kp), Np = a.shape, w.shape[0]
+        ops, nbytes = 2.0 * Mp * Kp * Np, Mp * Kp + Np * Kp + 4.0 * Mp * Np
+        account("int8_gemm", lambda: real["int8_gemm"](a, w),
+                lambda: (a.double() @ w.double().t()).to(torch.int32), nbytes, ops,
+                max(ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3, 0.0)
+        return acc
+
+    def epilogue(acc, rescale, bias, out, h, w, oy0=0, ox0=0, accumulate=False, norm=None):
+        args = (acc, rescale, bias)
+        region = (h, w, oy0, ox0, accumulate, norm)
+        want = qconv.dequant_epilogue_plain(*args, out.clone(), *region)
+        before = out.clone()
+        real["dequant_epilogue"](*args, out, *region)
+        err = float((out - want).abs().max())
+        check(torch.equal(out, want), f"dequant_epilogue differs from plain ({h}x{w}, "
+              f"accumulate {accumulate}, norm {norm is not None})")
+        B, N = out.shape[0], out.shape[3]
+        nbytes = B * h * w * N * (4 + 4 + (4 if accumulate else 0))
+        scratch, plain_scratch = before.clone(), before.clone()  # timed calls write these
+        account("dequant_epilogue", lambda: real["dequant_epilogue"](*args, scratch, *region),
+                lambda: qconv.dequant_epilogue_plain(*args, plain_scratch, *region), nbytes, 0,
+                nbytes / HBM_BYTES_PER_S * 1e3, err)
+        return out
+
+    quant.quantize_gather, quant.int8_gemm, quant.dequant_epilogue = gather, gemm, epilogue
+    try:
+        with torch.inference_mode():
+            out = qmodel(x)
+        torch.cuda.synchronize()
+    finally:
+        quant.quantize_gather = real["quantize_gather"]
+        quant.int8_gemm = real["int8_gemm"]
+        quant.dequant_epilogue = real["dequant_epilogue"]
+    return out, sums
+
+
+def int8_device_breakdown(qmodel, x) -> dict:
+    """Device ms of one int8 forward by kind of kernel (torch.profiler)."""
+    total, names = device_ms(lambda: qmodel(x), runs=2, warmup=1)
+    kinds = {"quantize_gather": 0.0, "dequant_epilogue": 0.0, "int8_gemm": 0.0, "other": 0.0}
+    for name, ms in names.items():
+        kind = ("quantize_gather" if "quantize_gather" in name
+                else "dequant_epilogue" if "dequant_epilogue" in name
+                else "int8_gemm" if ("gemm" in name.lower() or "s8" in name) else "other")
+        kinds[kind] += ms
+    return {"total_ms": total, **kinds,
+            "top_other": sorted(((short_name(k), v) for k, v in names.items()
+                                 if not any(t in k for t in ("quantize_gather", "dequant_epilogue"))),
+                                key=lambda kv: -kv[1])[:6]}
+
+
+def bucket_times(model, qmodel, images, size: int, max_batch: int) -> dict:
+    """For every serving bucket: predict_many img/s (float32 and int8, the
+    same Predictor settings as the path) and the model's ms an image."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.pipelines.serve import Predictor, model_inputs
+
+    x = model_inputs(torch.from_numpy(images[:max_batch]).cuda(), size)
+    out = {}
+    b = 1
+    while b <= max_batch:
+        row = {}
+        for kind in ("fp32", "int8"):
+            pred = Predictor(model, size=size, max_batch=b, clean=True, packed=True,
+                             device="cuda")
+            if kind == "int8":
+                pred.quantized = qmodel
+            n = max(2 * b, 16)
+            pred.predict_many(images[:b])  # warm: this batch shape's algorithms
+            t0 = time.perf_counter()
+            pred.predict_many(images[:n])
+            row[f"{kind}_img_per_s"] = n / (time.perf_counter() - t0)
+            m = qmodel if kind == "int8" else model
+            with torch.inference_mode():
+                row[f"{kind}_model_ms_per_image"] = cuda_ms(lambda: m(x[:b]), runs=3,
+                                                            warmup=1) / b
+        out[b] = row
+        b *= 2
+    return out
+
+
+def phase_serve_int8():
+    """DeepLabV3-ResNet50 at 256², max_batch 64, quantized by the port's
+    int8 PTQ (calibrated on 64 synthetic pets, as the CLI without
+    --calib-dir)."""
+    import copy
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+    from weaklysuperviseddl_tpu_torch.pipelines.serve import (
+        MaskClient,
+        MaskServer,
+        Predictor,
+        model_inputs,
+    )
+
+    size, max_batch = 256, 64
+    model, rng, margin = serve_model()
+    cpu_model = copy.deepcopy(model).cpu()
+    calib = pets("test", max_batch, size, seed=0)
+    evals = pets("trainval", 128, size, seed=1)
+
+    pred = Predictor(model, size=size, max_batch=max_batch, clean=True, packed=True,
+                     device="cuda")
+    float_masks = pred(evals[:max_batch])
+    state_file = CKPT_ROOT / "serve_int8" / "calib.json"
+    state_file.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    report = pred.quantize(calib, state_path=str(state_file))
+    quantize_s = time.perf_counter() - t0
+    kinds = [r["kind"] for r in report.rows]
+    check(len(kinds) == 77 and kinds.count("conv") == 58 and kinds.count("dot") == 19,
+          f"int8 sites {len(kinds)} ({kinds.count('conv')} conv, {kinds.count('dot')} dot); "
+          "expected 77 (58 conv, 19 dot)")
+    qmodel = pred.quantized
+
+    # every site's kernels against their plain versions, at the path's batch of 64
+    x = model_inputs(torch.from_numpy(evals[:max_batch]).cuda(), size)
+    _, per_site = checked_int8_forward(qmodel, x)
+    breakdown = int8_device_breakdown(qmodel, x)
+
+    # ---- the main path: counts from 0, predict_many and a server, counts read after ----
+    reset_cc_counts()
+    reset_qconv_counts()
+    int8_masks = pred.predict_many(evals, in_flight=4)
+    server = MaskServer(pred, max_wait_ms=5.0).start()
+    try:
+        client = MaskClient(f"http://127.0.0.1:{server.port}", timeout=120.0)
+        served = [client.predict(img) for img in evals[:4]]
+        healthz = client.healthz()
+    finally:
+        server.stop()
+    launches = {**qconv_counts(), "cc_label": label_components_cuda.launches}
+    check(all(v > 0 for v in launches.values()), f"serve_int8 launches {launches}")
+    check_cc_image_plan("serve_int8")
+    check(healthz["int8"] is True, "/healthz does not report int8")
+    check(all(np.array_equal(m, int8_masks[i]) for i, m in enumerate(served)),
+          "served int8 replies differ from predict_many's masks")
+    check(int8_masks.shape == (len(evals), size, size) and set(np.unique(int8_masks)) <= {0, 1},
+          "int8 masks are not binary [128,256,256]")
+
+    # the card against the CPU port, under the same calibration file
+    cpu = Predictor(cpu_model, size=size, max_batch=2, clean=True, packed=True, device="cpu")
+    cpu.quantize(state_path=str(state_file))
+    cpu_masks = cpu(evals[:2])
+    card_cpu = float((cpu_masks == int8_masks[:2]).mean())
+    check(card_cpu >= 0.995, f"int8 card/CPU mask agreement {card_cpu} < 0.995")
+    agree_fp32 = float((int8_masks[:max_batch] == float_masks).mean())
+
+    times = bucket_times(model, qmodel, evals, size, max_batch)
+    emit("serve_int8", model="DeepLabV3-ResNet50 os8 width 1.0, 2 classes, random init (seed 0)",
+         size=size, max_batch=max_batch, bias_shift=margin, calibration="64 synthetic pets",
+         sites=len(kinds), conv_sites=kinds.count("conv"), dot_sites=kinds.count("dot"),
+         quantize_s=quantize_s, kernels_equal_plain=True, gemm_exact=True,
+         card_cpu_int8_agreement=card_cpu, int8_fp32_agreement=agree_fp32,
+         fg_frac_int8=float(int8_masks.mean()), healthz_int8=healthz["int8"],
+         launches_main_path=launches, per_forward_at_batch_64=per_site,
+         int8_device_ms_at_batch_64=breakdown, buckets=times)
+    return launches, per_site, breakdown
 
 
 def window_pairs(window: int) -> int:
@@ -1858,11 +2107,19 @@ def phase_serve_checkpoint(weakly):
     in_memory = Predictor(weakly["final_model"], size=size, max_batch=batch, clean=True,
                           packed=True, device="cuda")
     reqs = _requests(np.random.default_rng(8), batch, (size, size))
-    # ---- the path: counts from 0, one batch through each Predictor, counts read after ----
+    calib = pets("test", batch, size, seed=0)
+    # ---- the path: counts from 0, one batch through each Predictor, then the
+    # snapshot quantized as the CLI's serve does, counts read after ----
     reset_cc_counts()
+    reset_qconv_counts()
     got = from_file(reqs)
     want = in_memory(reqs)
-    launches = {"cc_label": label_components_cuda.launches}
+    from_file.quantize(calib)
+    got_int8 = from_file(reqs)
+    launches = {"cc_label": label_components_cuda.launches, **qconv_counts()}
+    check(all(v > 0 for v in launches.values()), f"serve_checkpoint launches {launches}")
+    check(got_int8.shape == got.shape and set(np.unique(got_int8)) <= {0, 1},
+          "int8 masks served from the checkpoint are not binary [64,256,256]")
     check_cc_image_plan("serve_checkpoint")
     check(got.shape == (batch, size, size) and set(np.unique(got)) <= {0, 1},
           "masks served from the checkpoint are not binary [64,256,256]")
@@ -1871,6 +2128,7 @@ def phase_serve_checkpoint(weakly):
     emit("serve_checkpoint", entry="cli.serve_model(checkpoint=alt_001/state.pt) + "
          "Predictor(clean=True, packed=True)", batch=batch, size=size, load_s=load_s,
          masks_equal=True, fg_frac=float(got.mean()), wrong_model_refused=refused,
+         int8_fp32_agreement=float((got_int8 == got).mean()), fg_frac_int8=float(got_int8.mean()),
          launches_main_path=launches)
     return launches
 
@@ -2043,6 +2301,7 @@ def run_phases(seconds: dict, t_start: float) -> int:
     timed("build", phase_build)
     max_err = timed("cc", phase_cc)
     launches, served_masks = timed("serve", phase_serve)
+    int8_launches, int8_sites, int8_breakdown = timed("serve_int8", phase_serve_int8)
     refine_timing, path_batch, batch8 = timed("refine", phase_refine)
     window = timed("window", phase_window, path_batch, batch8)
     del path_batch, batch8
@@ -2082,7 +2341,8 @@ def run_phases(seconds: dict, t_start: float) -> int:
         "route": "cuda",
         "source": "weaklysuperviseddl_tpu_torch/csrc/cc.cu",
         "replaces": "weaklysuperviseddl_tpu/ops/pallas_cc.py:29",
-        **by_path("cc_label", serve=launches, weakly=weakly_launches["cc_label"]),
+        **by_path("cc_label", serve=launches, serve_int8=int8_launches["cc_label"],
+                  weakly=weakly_launches["cc_label"]),
         "max_abs_err": max_err,
         **kernel_ms(lambda: label_components_cuda(served_masks), runs=25, warmup=3),
         "host_ms": host_ms(lambda: label_components_cuda(served_masks), runs=25),
@@ -2176,6 +2436,36 @@ def run_phases(seconds: dict, t_start: float) -> int:
         "shape": fusion["shape"],  # layer4; layer3 in the cam_fusion line
         "cluster_size": fusion["cluster_size"],  # CTAs an image, one cluster each
     }]}
+    gemm = int8_sites["int8_gemm"]
+    for name in ("quantize_gather", "dequant_epilogue"):
+        t = int8_sites[name]
+        kernel_line["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "weaklysuperviseddl_tpu_torch/csrc/qconv.cu",
+            # no TPU kernel: JAX's int8 convolution is XLA's (the rewrite binds it here)
+            "replaces": "weaklysuperviseddl_tpu/ops/quant.py:414",
+            **by_path(name, serve_int8=int8_launches[name]),
+            "max_abs_err": t["max_abs_err"],  # every site against plain, bit-equal
+            # one int8 forward at batch 64: the sum over its calls at their shapes
+            "calls_per_forward": t["calls"],
+            "ms": t["ms"],
+            "device_ms": int8_breakdown[name],
+            "host_ms": t["host_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": "bytes",
+            "bytes": t["bytes"],
+            "library_ms": None,  # no single PyTorch call gathers int8 patches or dequantizes
+            **({"int8_gemm": {  # torch._int_mm (cuBLASLt), the library's product, not ours
+                "calls_per_forward": gemm["calls"], "ms": gemm["ms"],
+                "device_ms": int8_breakdown["int8_gemm"], "plain_ms": gemm["plain_ms"],
+                "bound_ms": gemm["bound_ms"],  # each call's max(operations, bytes), summed
+                "bound_by": ("operations" if gemm["ops"] / INT8_OPS_PER_S
+                             > gemm["bytes"] / HBM_BYTES_PER_S else "bytes"),
+                "ops": gemm["ops"], "bytes": gemm["bytes"],
+                "launches": int8_launches["int8_gemm"]}} if name == "quantize_gather" else {}),
+        })
     emit("wall", seconds_by_phase=seconds, seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps(kernel_line), flush=True)

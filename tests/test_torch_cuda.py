@@ -552,3 +552,63 @@ def test_snapshot_from_the_card_restores_on_the_cpu_and_back(cuda, tmp_path):
     save_alternation(str(tmp_path / "cpu"), 0, on_cpu, cpu_store)
     back, _, _ = restore_alternation(str(tmp_path / "cpu"), state(cuda, 2))
     assert_same(back, card)
+
+
+@pytest.mark.parametrize("B,H,W,C,kh,stride,pad,dil,y0,x0,Ho,Wo", [
+    (2, 64, 64, 3, 7, 2, 3, 1, 0, 0, 32, 32),       # the stem, C = 3 (scalar loads)
+    (2, 16, 16, 64, 3, 1, 1, 1, 0, 0, 16, 16),      # 3x3 (16-byte loads)
+    (2, 16, 16, 36, 3, 2, 1, 1, 0, 0, 8, 8),        # C % 16 != 0 (4-byte groups)
+    (1, 12, 12, 32, 3, 1, 4, 4, 0, 0, 12, 12),      # dilated
+    (3, 1, 1, 64, 1, 1, 0, 1, 0, 0, 1, 1),          # the pooled branch: M = B
+    (2, 10, 10, 48, 1, 1, 0, 1, 3, 2, 7, 5),        # an ASPP tap's region
+])
+def test_qconv_kernels_equal_plain(cuda, B, H, W, C, kh, stride, pad, dil, y0, x0, Ho, Wo):
+    """Q1 and Q2 (written, added into a region, with a bias and with the
+    folded BatchNorm) bit for bit against their plain versions; the GEMM
+    exact against a float64 product."""
+    from weaklysuperviseddl_tpu_torch.ops import qconv
+
+    rng = np.random.default_rng(H * W + C)
+    x = torch.from_numpy((rng.normal(size=(B, H, W, C)) * 4).astype(np.float32)).to(cuda)
+    g = qconv.Geometry(kh, kh, stride, pad, dil, y0, x0, Ho, Wo)
+    N = 40
+    Mp, Kp, Np = qconv.padded(B * Ho * Wo, kh * kh * C, N)
+    before = qconv.quantize_gather.launches
+    a = qconv.quantize_gather(x, 9.7, g, Mp, Kp)
+    assert qconv.quantize_gather.launches == before + 1
+    assert torch.equal(a, qconv.quantize_gather_plain(x, 9.7, g, Mp, Kp))
+    w = torch.from_numpy(rng.integers(-127, 128, (Np, Kp), dtype=np.int8)).to(cuda)
+    acc = qconv.int8_gemm(a, w)
+    assert torch.equal(acc, (a.double() @ w.double().t()).to(torch.int32))
+    vec = [torch.from_numpy(rng.uniform(0.5, 1.5, N).astype(np.float32)).to(cuda)
+           for _ in range(5)]
+    out0 = torch.from_numpy(rng.normal(size=(B, Ho + 2, Wo + 3, N)).astype(np.float32)).to(cuda)
+    for bias, accumulate, norm in ((None, False, None), (vec[1], False, tuple(vec[2:])),
+                                   (None, True, None), (None, True, tuple(vec[2:]))):
+        args = (acc, vec[0] * 1e-4, bias)
+        region = (Ho, Wo, 1, 2, accumulate, norm)
+        got = qconv.dequant_epilogue(*args, out0.clone(), *region)
+        want = qconv.dequant_epilogue_plain(*args, out0.clone(), *region)
+        assert torch.equal(got, want), (bias is not None, accumulate, norm is not None)
+
+
+def test_int8_predictor_on_card_equals_cpu(cuda, tmp_path):
+    """The int8 program's float steps are the same bits on both devices, so
+    one calibration file serves the same masks on the card and on the CPU."""
+    import copy
+
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
+    from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
+    from weaklysuperviseddl_tpu_torch.ops import qconv
+    from weaklysuperviseddl_tpu_torch.pipelines.serve import Predictor
+
+    model = init_weights(DeepLabV3(2, 18, 0.25), torch.Generator().manual_seed(0))
+    imgs = (np.random.default_rng(1).uniform(0, 1, (4, 64, 64, 3)) * 255).astype(np.uint8)
+    gpu = Predictor(copy.deepcopy(model), size=64, max_batch=4, clean=True, device=cuda)
+    cpu = Predictor(model, size=64, max_batch=4, clean=True, device="cpu")
+    cpu.quantize(imgs, state_path=str(tmp_path / "calib.json"))
+    gpu.quantize(state_path=str(tmp_path / "calib.json"))
+    before = qconv.dequant_epilogue.launches
+    got = gpu(imgs)
+    assert qconv.dequant_epilogue.launches > before
+    np.testing.assert_array_equal(got, cpu(imgs))

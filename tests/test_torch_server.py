@@ -4,6 +4,7 @@ localhost. Structural cases use a stub predictor; the round trip uses the
 port's Predictor on the CPU."""
 
 import io
+import json
 import threading
 import time
 import urllib.error
@@ -297,15 +298,62 @@ def test_cli_serve_smoke_on_cpu(capsys):
     assert "smoke round trip OK: mask (48, 48)" in out
 
 
-@pytest.mark.parametrize("flag", ["--int8", "--checkpoint=w.pt"])
-def test_cli_serve_refuses_what_is_not_ported(flag):
-    """``--int8`` is not ported; ``--checkpoint`` of a file that does not exist
-    is refused the same way (usage error, exit code 2)."""
+@pytest.mark.parametrize("flag", ["--calib-dir", "--checkpoint=w.pt"])
+def test_cli_serve_refuses_what_is_not_ported(flag, tmp_path):
+    """``--calib-dir`` of a directory with no images, and ``--checkpoint`` of
+    a file that does not exist, are usage errors (exit code 2)."""
     from weaklysuperviseddl_tpu_torch.cli import main
 
+    if flag == "--calib-dir":
+        (tmp_path / "notes.txt").write_text("not an image")
+        flag = f"--calib-dir={tmp_path}"
     with pytest.raises(SystemExit) as e:
         main(["serve", "--smoke", "--device", "cpu", flag])
     assert e.value.code == 2
+
+
+def test_cli_serve_int8_with_calibration_state(tmp_path, capsys, monkeypatch):
+    """``serve --int8 --calib-state`` outside smoke mode, with the smoke
+    model at 48², batch 2 and port 0 (its class-1 bias raised by 10, so that
+    its masks are decided and int8 passes the agreement gate): the first run
+    calibrates on synthetic images (with the WARNING) and writes the file,
+    the second loads it; /healthz reports int8 while each serves. The same
+    model with random weights alone sits near the class tie, fails the 0.99
+    gate and serves float32 with the WARNING; ``--no-int8`` serves float32."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch import cli
+
+    health = []
+
+    def one_request(server):
+        health.append(MaskClient(f"http://127.0.0.1:{server.port}").healthz())
+        server.stop()
+
+    def model(shift):
+        m = init_weights(DeepLabV3(2, 18, 0.25), torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            m.classifier[4].bias[1] += shift
+        return m
+
+    monkeypatch.setattr(cli, "wait_for_interrupt", one_request)
+    monkeypatch.setattr(cli, "serve_model", lambda smoke, checkpoint=None: model(10.0))
+    state = tmp_path / "calib.json"
+    args = ["serve", "--device", "cpu", "--size", "48", "--max-batch", "2", "--port", "0",
+            "--calib-state", str(state)]
+    assert cli.main(args) == 0
+    out = capsys.readouterr().out
+    assert "WARNING: --int8 with no --calib-dir" in out
+    assert "calibrating int8 PTQ (synthetic, 2 images)" in out
+    assert "int8/float mask agreement on calibration batch: 1.0000" in out
+    assert json.loads(state.read_text())["n_targets"] == 28
+    assert cli.main(args) == 0
+    assert f"loading int8 calibration state from {state}" in capsys.readouterr().out
+    assert cli.main(args[:-2] + ["--no-int8"]) == 0
+    monkeypatch.setattr(cli, "serve_model", lambda smoke, checkpoint=None: model(0.0))
+    assert cli.main(args[:-1] + [str(tmp_path / "random.json")]) == 0
+    assert "< 0.99 on the calibration batch — falling back" in capsys.readouterr().out
+    assert [h["int8"] for h in health] == [True, True, False, False]
 
 
 def test_cli_client_reports_unreachable_server(capsys):

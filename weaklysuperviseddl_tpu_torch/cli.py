@@ -7,7 +7,7 @@ weaklysuperviseddl_tpu/cli.py):
     python -m weaklysuperviseddl_tpu_torch supervised [--smoke] [--device cpu] [--seg.epochs 5 ...]
     python -m weaklysuperviseddl_tpu_torch ablations [--smoke] [--device cpu] [...]
     python -m weaklysuperviseddl_tpu_torch serve [--smoke] [--device cpu] [--port 8765]
-        [--checkpoint PATH]
+        [--checkpoint PATH] [--no-int8 | --calib-dir DIR] [--calib-state PATH]
     python -m weaklysuperviseddl_tpu_torch client --url http://host:8765 --image photo.jpg
 
 ``weakly``, ``supervised``, ``ablations`` and ``serve`` run on the card
@@ -21,7 +21,13 @@ record of the run. ``ablations`` runs the reference's grid with an untrained
 classifier (``--smoke``: its first point, one repeat) and prints the last
 summary. ``serve --checkpoint`` serves the DeepLabV3 weights of a seg state
 file the port wrote (``utils/checkpoint.save_state`` of a seg state, or a
-snapshot's ``state.pt``).
+snapshot's ``state.pt``). ``serve`` quantizes the model to int8 by default,
+as the JAX package does (``--no-int8``: float32): calibrated on the images of
+``--calib-dir`` (read with PIL, imported only then) or, with a WARNING, on
+synthetic ones, or loaded from ``--calib-state``, which is written after a
+calibration; if the int8 masks agree with the float ones on under 0.99 of the
+calibration batch's pixels, the float model serves, with a WARNING.
+``--smoke`` skips int8.
 """
 
 from __future__ import annotations
@@ -155,13 +161,82 @@ def serve_model(smoke: bool, checkpoint: str | None = None):
     return init_weights(model, torch.Generator().manual_seed(0))
 
 
+CALIB_EXTENSIONS = (".bmp", ".gif", ".jpeg", ".jpg", ".png", ".webp")
+
+
+def _calibration_files(calib_dir: str, limit: int, parser) -> list[str]:
+    """The first ``limit`` image files of ``calib_dir`` by name; none is a
+    usage error."""
+    files = sorted(f for f in os.listdir(calib_dir)
+                   if os.path.isfile(os.path.join(calib_dir, f))
+                   and os.path.splitext(f)[1].lower() in CALIB_EXTENSIONS)[:limit]
+    if not files:
+        parser.error(f"--calib-dir {calib_dir} contains no image files "
+                     f"({'/'.join(sorted(CALIB_EXTENSIONS))})")
+    return [os.path.join(calib_dir, f) for f in files]
+
+
+def _calibration_images(files: list[str] | None, count: int, size: int):
+    """uint8 [N,size,size,3]: ``files`` decoded and resized with PIL, or,
+    without files, ``count`` synthetic test images (with a WARNING)."""
+    import numpy as np
+
+    if files:
+        from PIL import Image
+
+        return np.stack([np.asarray(Image.open(f).convert("RGB").resize((size, size)), np.uint8)
+                         for f in files])
+    from weaklysuperviseddl_tpu_torch.data.dataset import download_data
+
+    print("WARNING: --int8 with no --calib-dir calibrates activation scales on SYNTHETIC "
+          "images; pass --calib-dir with production-like images (or --no-int8) for a real "
+          "deployment", flush=True)
+    ds = download_data(None, split="test", synthetic_size=count, image_size=size)
+    return np.stack([np.asarray(ds.images[i], np.uint8) for i in range(len(ds))])
+
+
+def _quantize(pred, args, files: list[str] | None):
+    """``pred.quantize`` on the calibration images (or ``--calib-state``),
+    then the agreement gate: below 0.99 the float model serves."""
+    import numpy as np
+
+    calib = _calibration_images(files, args.max_batch, pred.size)
+    reuse = args.calib_state and os.path.exists(args.calib_state)
+    print(f"loading int8 calibration state from {args.calib_state}..." if reuse else
+          f"calibrating int8 PTQ ({'dir' if files else 'synthetic'}, "
+          f"{calib.shape[0]} images)...", flush=True)
+    ref_masks = pred(calib)
+    pred.quantize(calib, state_path=args.calib_state)
+    agree = float(np.mean(pred(calib) == ref_masks))
+    if agree < 0.99:
+        pred.quantized = None
+        print(f"WARNING: int8/float mask agreement {agree:.4f} < 0.99 on the calibration "
+              "batch — falling back to the float serving program (check calibration "
+              "coverage)", flush=True)
+    else:
+        print(f"int8/float mask agreement on calibration batch: {agree:.4f}", flush=True)
+
+
+def wait_for_interrupt(server):  # pragma: no cover - long-running server
+    """Serve until Ctrl-C, then stop the server."""
+    import time
+
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        server.stop()
+
+
 def _serve(args, parser) -> int:
     import numpy as np
 
     from weaklysuperviseddl_tpu_torch.pipelines.serve import MaskClient, Predictor
 
-    if args.int8:
-        parser.error("--int8 is not ported yet (it waits for the port of ops/quant.py)")
+    int8 = args.int8 and not args.smoke
+    # a usage error before any model is built
+    files = (_calibration_files(args.calib_dir, args.max_batch, parser)
+             if args.int8 and args.calib_dir else None)
     device = _device(args)
     size = 48 if args.smoke else args.size
     try:
@@ -170,11 +245,13 @@ def _serve(args, parser) -> int:
         parser.error(f"serve --checkpoint: {e}")
     pred = Predictor(model, size=size, max_batch=2 if args.smoke else args.max_batch,
                      packed=args.packed, device=device)
+    if int8:
+        _quantize(pred, args, files)
     pred.warmup(all_buckets=True)
     server = pred.serve_http(port=0 if args.smoke else args.port)
     print(f"serving uint8 [h,w,3] → {size}² masks on http://127.0.0.1:{server.port}/predict "
-          f"({device}; np.save bodies; PNG/JPEG via Content-Type: image/*, "
-          f"PNG masks via Accept: image/png)", flush=True)
+          f"({device}, {'int8' if pred.quantized is not None else 'float32'}; np.save bodies; "
+          f"PNG/JPEG via Content-Type: image/*, PNG masks via Accept: image/png)", flush=True)
     if args.smoke:
         # self-request round trip through the shipped client, then exit
         try:
@@ -184,13 +261,7 @@ def _serve(args, parser) -> int:
             server.stop()
         print(f"smoke round trip OK: mask {mask.shape} values {sorted(set(np.unique(mask)))}")
         return 0
-    try:  # pragma: no cover - long-running server
-        import time
-
-        while True:
-            time.sleep(3600)
-    except KeyboardInterrupt:
-        server.stop()
+    wait_for_interrupt(server)
     return 0
 
 
@@ -254,8 +325,16 @@ def main(argv=None) -> int:
     parser.add_argument("--max-batch", type=int, default=64)
     parser.add_argument("--packed", default=True, action=argparse.BooleanOptionalAction,
                         help="serve: bit-packed device→host mask readback (default on)")
-    parser.add_argument("--int8", default=False, action=argparse.BooleanOptionalAction,
-                        help="serve: int8 PTQ (not ported yet)")
+    parser.add_argument("--int8", default=True, action=argparse.BooleanOptionalAction,
+                        help="serve: int8 PTQ of the served model (default on; calibrates on "
+                             "--calib-dir images or synthetic data; skipped with --smoke). "
+                             "--no-int8 for float32")
+    parser.add_argument("--calib-dir", default=None,
+                        help="serve: directory of calibration PNGs/JPGs for --int8 (synthetic "
+                             "calibration if omitted)")
+    parser.add_argument("--calib-state", default=None,
+                        help="serve: int8 calibration file (JSON, the JAX package's format): "
+                             "loaded if it exists, written after calibration otherwise")
     parser.add_argument("--url", default="http://127.0.0.1:8765",
                         help="client: base URL of a running MaskServer")
     parser.add_argument("--image", default=None,

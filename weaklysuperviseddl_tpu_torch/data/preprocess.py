@@ -34,9 +34,13 @@ def preprocess_images(images: torch.Tensor, size: int, interpolation: str = "bil
     """[B,3,H,W] uint8 or float → [B,3,size,size] float32 in [0,1] (or
     normalised). Downsizing with bilinear interpolation antialiases, as the
     JAX package does (``antialias = H > size``)."""
-    x = images.float()
-    if not images.is_floating_point():
-        x = x / 255.0
+    if images.is_floating_point():
+        x = images.float()
+    else:
+        # the correctly rounded float32 quotient on every device: CUDA divides
+        # by a host scalar as a multiply by its reciprocal, which in float32
+        # is 1 ulp off for 126 of the 256 values; in float64 it is not
+        x = (images.double() / 255.0).float()
     if x.shape[-2] != size or x.shape[-1] != size:
         if interpolation == "bicubic":
             x = resize_bicubic(x, (size, size), axes=(2, 3))

@@ -11,7 +11,10 @@ torchvision's ``deeplabv3_resnet50`` layout and state-dict keys:
   * bilinear upsample of the logits to the input size (align_corners=False)
 
 The JAX ``_AtrousTapConv`` is a TPU layout of the same zero-padded dilated
-convolution; here it is ``Conv2d(padding=rate, dilation=rate)``.
+convolution; here its float forward is ``Conv2d(padding=rate, dilation=rate)``
+(``AtrousConv``). Its plan matters to int8 serving, where each of JAX's taps
+is a quantized site of its own with its own scales: ``AtrousConv.taps`` gives
+the taps JAX runs at an input size (``ops/quant.py`` walks them).
 
 The ASPP's dropout (``Dropout``) draws its mask from a generator of its own on
 the input's device, never from torch's global random state: the training loop
@@ -25,7 +28,7 @@ stays active. The default (False) is the reference's semantics.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn as nn
@@ -73,10 +76,56 @@ def seed_dropout(model: nn.Module, seed: int):
             m.manual_seed(seed, device)
 
 
-def _conv_bn_relu(cin, cout, kernel=1, rate=1):
-    return [nn.Conv2d(cin, cout, kernel, padding=rate if kernel == 3 else 0,
-                      dilation=rate, bias=False),
-            BatchNorm2d(cout), nn.ReLU()]
+class Tap(NamedTuple):
+    """One in-bounds tap of a 3x3 atrous convolution: kernel position (iy,
+    ix), the output rows [oy0, oy1) and columns [ox0, ox1) it reaches, and
+    its source offset (dy, dx): out[oy, ox] += w[iy, ix] · x[oy + dy, ox + dx]."""
+
+    iy: int
+    ix: int
+    oy0: int
+    oy1: int
+    ox0: int
+    ox1: int
+    dy: int
+    dx: int
+
+
+def atrous_taps(rate: int, H: int, W: int) -> list[Tap] | None:
+    """The JAX ``_AtrousTapConv`` plan of a 3x3 convolution at dilation
+    ``rate`` over an H x W input: None where it runs the dilated convolution
+    (4·rate < min(H, W)), else its taps in the order it adds them (iy, then
+    ix), those wholly in the padding left out."""
+    if 4 * rate < min(H, W):
+        return None
+    taps = []
+    for iy, dy in enumerate((-rate, 0, rate)):
+        oy0, oy1 = max(0, -dy), min(H, H - dy)
+        if oy1 <= oy0:
+            continue
+        for ix, dx in enumerate((-rate, 0, rate)):
+            ox0, ox1 = max(0, -dx), min(W, W - dx)
+            if ox1 > ox0:
+                taps.append(Tap(iy, ix, oy0, oy1, ox0, ox1, dy, dx))
+    return taps
+
+
+class AtrousConv(nn.Conv2d):
+    """An ASPP branch's 3x3 atrous convolution (no bias): ``nn.Conv2d``'s
+    forward and state-dict keys, unchanged; ``taps`` is its JAX plan."""
+
+    def __init__(self, cin: int, cout: int, rate: int):
+        super().__init__(cin, cout, 3, padding=rate, dilation=rate, bias=False)
+        self.rate = rate
+
+    def taps(self, H: int, W: int) -> list[Tap] | None:
+        return atrous_taps(self.rate, H, W)
+
+
+def _conv_bn_relu(cin, cout, kernel=1, rate=None):
+    conv = (nn.Conv2d(cin, cout, kernel, padding=kernel // 2, bias=False) if rate is None
+            else AtrousConv(cin, cout, rate))
+    return [conv, BatchNorm2d(cout), nn.ReLU()]
 
 
 class ASPP(nn.Module):

@@ -12,7 +12,9 @@ first block keeps the *previous* dilation and its stride collapses to 1; the
 remaining blocks use the accumulated dilation.
 
 The JAX stem plans ``s2d`` and ``pack8`` are TPU layouts of the same 7x7/2
-convolution; here the stem is that convolution.
+convolution; here the stem is that convolution (``StemConv``), which also
+names the kernel shape JAX's default ``s2d`` plan convolves with, the stem's
+fingerprint in an int8 calibration file (``ops/quant.py``).
 """
 
 from __future__ import annotations
@@ -54,6 +56,23 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
             self.num_batches_tracked.add_(1)
         return y
+
+
+class StemConv(nn.Conv2d):
+    """The 7x7/2 stem convolution (padding 3, no bias): ``nn.Conv2d``'s
+    forward and state-dict keys, unchanged."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 7, stride=2, padding=3, bias=False)
+
+    def jax_kernel_shape(self, H: int, W: int) -> list[int]:
+        """The HWIO shape of the kernel the JAX stem convolves an H x W input
+        with: its ``s2d`` plan's [4, 4, 4·C, F] (the 7x7 kernel padded to 8x8
+        and folded 2x2 into the channels) where H and W are even, else the
+        direct [7, 7, C, F]. The products are the same: the padded entries
+        are zero."""
+        C, F = self.in_channels, self.out_channels
+        return [7, 7, C, F] if H % 2 or W % 2 else [4, 4, 4 * C, F]
 
 
 def _conv(cin, cout, kernel, stride=1, dilation=1):
@@ -117,7 +136,7 @@ class ResNetBackbone(nn.Module):
         self.width_multiplier = width_multiplier
         block = Bottleneck if depth in BOTTLENECK_DEPTHS else BasicBlock
         stem = self._width(64)
-        self.conv1 = nn.Conv2d(3, stem, 7, stride=2, padding=3, bias=False)
+        self.conv1 = StemConv(3, stem)
         self.bn1 = BatchNorm2d(stem)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
 

@@ -12,9 +12,13 @@ copied back into pinned host memory with a ``non_blocking`` copy followed by
 an event; ``readback`` waits on that event. Nothing in the dispatch waits for
 the card, so a caller overlaps the next dispatch with the device's work.
 
+``Predictor.quantize`` swaps the model for its int8 rewrite (``ops/quant.py``,
+JAX's int8 PTQ: its sites, scales and calibration file), calibrated on images
+or loaded from a calibration file of either package; the rest of the program
+is unchanged.
+
 ``MaskServer`` and ``MaskClient`` carry the reference's HTTP protocol over
-unchanged. Not ported yet: int8 PTQ (``Predictor.quantize``) and mesh serving
-(``Predictor(mesh=...)``).
+unchanged. Not ported yet: mesh serving (``Predictor(mesh=...)``).
 """
 
 from __future__ import annotations
@@ -43,14 +47,19 @@ def pack_binary_masks(masks: torch.Tensor) -> torch.Tensor:
     return (bits * weights).sum(dim=-1, dtype=torch.uint8)
 
 
+def model_inputs(images_uint8: torch.Tensor, size: int) -> torch.Tensor:
+    """[B,h,w,3] uint8 → the model's input [B,3,size,size]: /255, resize,
+    ImageNet normalisation."""
+    x = preprocess_images(images_uint8.permute(0, 3, 1, 2), size)
+    return _normalize_images(x, channel_dim=1)
+
+
 @torch.inference_mode()
 def predict_masks(model, images_uint8: torch.Tensor, size: int = 256, clean: bool = False,
                   pack: bool = False) -> torch.Tensor:
     """[B,h,w,3] uint8 → uint8 {0,1} masks [B,size,size] on the images' device
     (``pack=True`` → [B,size,size//8] bitmaps). The model is in eval mode."""
-    x = preprocess_images(images_uint8.permute(0, 3, 1, 2), size)
-    x = _normalize_images(x, channel_dim=1)
-    logits = model(x)
+    logits = model(model_inputs(images_uint8, size))
     masks = logits.argmax(dim=1).to(torch.uint8)
     if clean:
         masks = keep_largest_batch(masks)
@@ -68,7 +77,10 @@ class Predictor:
     Numerics: batches of different sizes may pick different convolution
     algorithms, so pixels whose two class logits tie to the last ulp can flip
     across bucket sizes (random-init weights sit closest to such ties);
-    identical inputs through the same bucket are deterministic."""
+    identical inputs through the same bucket are deterministic.
+
+    ``quantized`` is the int8 model that serves in place of ``model`` once
+    ``quantize`` has run (None: the float model serves)."""
 
     def __init__(self, model: torch.nn.Module, size: int = 256, max_batch: int = 16,
                  clean: bool = False, packed: bool = False, device=None):
@@ -78,6 +90,7 @@ class Predictor:
         self.max_batch = max_batch
         self.clean = clean
         self.packed = packed  # bit-pack masks on the device, unpack on the host
+        self.quantized = None  # set by quantize()
         if packed:
             nc = getattr(model, "num_classes", 2)
             if nc != 2:
@@ -103,13 +116,60 @@ class Predictor:
             self.readback(*self.dispatch_async(np.zeros((b, h, w, 3), np.uint8)))
         return self
 
+    def quantize(self, calibration_images: np.ndarray | None = None, clip_ratio: float = 1.0,
+                 state_path: str | None = None):
+        """Serve the int8 rewrite of the model (``ops/quant.py``) from now on.
+        ``calibration_images``: uint8 [N,h,w,3], N ≥ 1, observed in
+        ``max_batch`` windows (a ragged tail is filled by tiling, so that
+        every image is observed).
+
+        ``state_path``: a calibration file (JSON, JAX's format). If it exists
+        it is loaded and checked against this model's sites, and no image is
+        needed; otherwise the calibration from the images is written there
+        (atomically: a temporary file, then ``os.replace``). Returns the
+        ``QuantReport``."""
+        import json
+        import os
+
+        from weaklysuperviseddl_tpu_torch.ops.quant import Int8Quantizer
+
+        def inputs(images: np.ndarray) -> torch.Tensor:
+            return model_inputs(torch.from_numpy(np.ascontiguousarray(images, np.uint8))
+                                .to(self.device), self.size)
+
+        if state_path and os.path.exists(state_path):
+            q = Int8Quantizer(self.model, inputs(
+                np.zeros((self.max_batch, self.size, self.size, 3), np.uint8)))
+            with open(state_path) as f:
+                q.load_calibration(json.load(f))
+        else:
+            if calibration_images is None:
+                raise ValueError("quantize() needs calibration_images when state_path is "
+                                 "unset or does not exist yet")
+            imgs = np.asarray(calibration_images)
+            n = imgs.shape[0]
+            total = -(-n // self.max_batch) * self.max_batch
+            if total != n:
+                imgs = np.concatenate([imgs] * -(-total // n))[:total]
+            q = Int8Quantizer(self.model, inputs(imgs[:self.max_batch]))
+            for i in range(0, imgs.shape[0], self.max_batch):
+                q.observe(inputs(imgs[i:i + self.max_batch]))
+            if state_path:
+                tmp = state_path + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump(q.calibration_state(), f)
+                os.replace(tmp, state_path)
+        self.quantized, report = q.build(clip_ratio=clip_ratio)
+        return report
+
     def _dispatch(self, images: torch.Tensor):
         """Enqueue one bucket-sized batch; returns (host tensor, event or None)."""
+        model = self.model if self.quantized is None else self.quantized
         if self.device.type != "cuda":
-            return predict_masks(self.model, images, self.size, self.clean, self.packed), None
+            return predict_masks(model, images, self.size, self.clean, self.packed), None
         with torch.cuda.device(self.device):
             x = images.pin_memory().to(self.device, non_blocking=True)
-            out = predict_masks(self.model, x, self.size, self.clean, self.packed)
+            out = predict_masks(model, x, self.size, self.clean, self.packed)
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             done = torch.cuda.Event()
@@ -362,7 +422,7 @@ class MaskServer:
                         "size": pred.size,
                         "max_batch": pred.max_batch,
                         "buckets": pred.buckets(),
-                        "int8": False,  # int8 PTQ is not ported yet
+                        "int8": pred.quantized is not None,
                         "packed": pred.packed,
                     }
                 elif self.path == "/stats":

@@ -10,8 +10,10 @@ kernel on the card); ``seg.loss_fn`` is "cross_entropy" or "lovasz_softmax";
 ``seg.bn_frozen`` trains DeepLabV3 with frozen BatchNorm statistics. With a
 ``checkpoint_dir`` the alternating loop snapshots every alternation there,
 and ``resume=True`` continues from the latest snapshot
-(``utils/checkpoint.py``). Not ported yet: the CRF's other backends and
-compute types other than float32.
+(``utils/checkpoint.py``). ``classifier_weights`` and ``seg_weights`` start
+the cycle from given state dicts (for instance a JAX tree's, carried across by
+``models/jax_import.py``) instead of the seeded ``init_weights``. Not ported
+yet: the CRF's other backends and compute types other than float32.
 """
 
 from __future__ import annotations
@@ -76,11 +78,16 @@ def crf_kwargs(cfg: ExperimentConfig) -> dict | None:
                 bilat_backend=m.crf_backend, key_stride=m.crf_key_stride)
 
 
-def build_classifier(cfg: ExperimentConfig, device) -> CamClassifier:
+def build_classifier(cfg: ExperimentConfig, device, weights: dict | None = None) -> CamClassifier:
+    """The CAM classifier on ``device``: the state dict ``weights`` where
+    given, else seeded random weights."""
     model = CamClassifier(num_classes=cfg.data.num_classes, depth=cfg.classifier.depth,
                           width_multiplier=cfg.classifier.width_multiplier,
                           dilate_layer4=cfg.classifier.dilate_layer4)
-    init_weights(model, torch.Generator().manual_seed(cfg.seed))
+    if weights is None:
+        init_weights(model, torch.Generator().manual_seed(cfg.seed))
+    else:
+        model.load_state_dict(weights, strict=True)
     return model.to(device)
 
 
@@ -100,10 +107,13 @@ def load_test_arrays(cfg: ExperimentConfig, device):
 
 
 def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch | None = None,
-                          device=None) -> WeaklySupervisedResult:
+                          device=None, classifier_weights: dict | None = None,
+                          seg_weights: dict | None = None) -> WeaklySupervisedResult:
     """The weakly-supervised cycle at the configured scale: trained models,
     the pseudo-mask store and the eval metrics. ``stopwatch`` times each
-    stage of this code path in place."""
+    stage of this code path in place. ``classifier_weights`` and
+    ``seg_weights`` (state dicts) replace the seeded initial weights of the
+    classifier and of DeepLabV3."""
     check_supported(cfg)
     dev = resolve_device(device)
     sw = stopwatch if stopwatch is not None else Stopwatch(dev)
@@ -115,7 +125,7 @@ def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch
         test_arrays = load_test_arrays(cfg, dev)
 
     # --- stage 1: frozen-backbone classifier ---------------------------------
-    model = build_classifier(cfg, dev)
+    model = build_classifier(cfg, dev, classifier_weights)
     log("Starting training...")
     with sw.phase("classifier_fc_training", images=len(train_ds) * cfg.classifier.epochs):
         train_fc_only(
@@ -141,6 +151,8 @@ def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch
     # --- stage 4: DeepLabV3 on the pseudo-masks -------------------------------
     seg_state = create_seg_state(build_seg_model(cfg), seed=cfg.seed + 1, lr=cfg.seg.lr,
                                  device=dev)
+    if seg_weights is not None:
+        seg_state.model.load_state_dict(seg_weights, strict=True)
     images, masks, _ = store.as_arrays()
     with sw.phase("seg_training", images=len(store) * cfg.seg.epochs):
         seg_state, final_loss = train_segmentation_model(
@@ -158,7 +170,9 @@ def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch
 
 def run_weakly_supervised_alternating(cfg: ExperimentConfig, checkpoint_dir: str | None = None,
                                       resume: bool = False, stopwatch: Stopwatch | None = None,
-                                      log=print, device=None) -> WeaklySupervisedResult:
+                                      log=print, device=None,
+                                      classifier_weights: dict | None = None,
+                                      seg_weights: dict | None = None) -> WeaklySupervisedResult:
     """The whole main path: the cycle above, then the alternating train ↔
     refine loop over the pseudo-mask store with an eval per alternation.
 
@@ -166,13 +180,18 @@ def run_weakly_supervised_alternating(cfg: ExperimentConfig, checkpoint_dir: str
     ``resume=True`` the cycle is skipped: DeepLabV3 and its optimizer are
     built untrained, the latest snapshot in ``checkpoint_dir`` (train state
     and mask store) is restored into them, and the loop continues at the
-    next alternation, as if the run had never stopped."""
+    next alternation, as if the run had never stopped. ``classifier_weights``
+    and ``seg_weights`` start the cycle as in ``run_weakly_supervised``; a
+    resumed run takes its weights from the snapshot and refuses them."""
     if resume and checkpoint_dir is None:
         raise ValueError("resume=True requires checkpoint_dir (the snapshot directory "
                          "written by a previous run with --checkpoint-dir)")
     if resume and latest_alternation(checkpoint_dir) is None:
         raise FileNotFoundError(f"resume=True but no restorable alternation snapshots under "
                                 f"{checkpoint_dir!r}; run without --resume to start fresh")
+    if resume and (classifier_weights is not None or seg_weights is not None):
+        raise ValueError("resume=True restores the weights of the latest snapshot; "
+                         "initial weights apply to a fresh run only")
     check_supported(cfg)
     dev = resolve_device(device)
     sw = stopwatch if stopwatch is not None else Stopwatch(dev)
@@ -187,7 +206,9 @@ def run_weakly_supervised_alternating(cfg: ExperimentConfig, checkpoint_dir: str
         log(f"Resumed from {checkpoint_dir} at alternation {start_iteration}")
         result = WeaklySupervisedResult(None, seg_state, store, {}, test_arrays)
     else:
-        result = run_weakly_supervised(cfg, log=log, stopwatch=sw, device=dev)
+        result = run_weakly_supervised(cfg, log=log, stopwatch=sw, device=dev,
+                                       classifier_weights=classifier_weights,
+                                       seg_weights=seg_weights)
     test_arrays = result.test_arrays
 
     def eval_fn(state):
