@@ -32,8 +32,11 @@ Phases, one JSON line each:
                128 pets and 4 MaskServer requests, /healthz int8) with the
                counts reset just before and read just after; the card's int8
                masks against the CPU port's under the same calibration file
-               (>= 0.995); int8 against float32 masks; predict_many img/s and
-               the model's ms an image, float32 and int8, at every bucket.
+               on rows 0, 1, 62 and 63 of the first batch-64 launch (>= 0.995);
+               int8 against float32 masks; predict_many img/s and the model's
+               ms an image, float32 and int8, at every bucket: img/s over a
+               window of at least 256 images and about 2 s, 3 times, each as
+               its median, least and largest reading.
   6. refine  - the refinement kernel against its plain PyTorch version on the
                card: at [2,16,16], [1,20,24] and [2,37,53], both losses, C=2 and
                3, windows 5 and 3, lr 1e-2 and 0.2 (where masks move), plan v1
@@ -763,23 +766,36 @@ def checked_int8_forward(qmodel, x) -> dict:
 
 
 def int8_device_breakdown(qmodel, x) -> dict:
-    """Device ms of one int8 forward by kind of kernel (torch.profiler)."""
+    """Device ms of one int8 forward by kind of kernel (torch.profiler), and
+    the longest kernels of the "other" kind."""
     total, names = device_ms(lambda: qmodel(x), runs=2, warmup=1)
-    kinds = {"quantize_gather": 0.0, "dequant_epilogue": 0.0, "int8_gemm": 0.0, "other": 0.0}
-    for name, ms in names.items():
-        kind = ("quantize_gather" if "quantize_gather" in name
+
+    def kind(name):
+        return ("quantize_gather" if "quantize_gather" in name
                 else "dequant_epilogue" if "dequant_epilogue" in name
                 else "int8_gemm" if ("gemm" in name.lower() or "s8" in name) else "other")
-        kinds[kind] += ms
+
+    kinds = {"quantize_gather": 0.0, "dequant_epilogue": 0.0, "int8_gemm": 0.0, "other": 0.0}
+    for name, ms in names.items():
+        kinds[kind(name)] += ms
     return {"total_ms": total, **kinds,
             "top_other": sorted(((short_name(k), v) for k, v in names.items()
-                                 if not any(t in k for t in ("quantize_gather", "dequant_epilogue"))),
-                                key=lambda kv: -kv[1])[:6]}
+                                 if kind(k) == "other"), key=lambda kv: -kv[1])[:6]}
 
 
-def bucket_times(model, qmodel, images, size: int, max_batch: int) -> dict:
-    """For every serving bucket: predict_many img/s (float32 and int8, the
-    same Predictor settings as the path) and the model's ms an image."""
+def spread(values) -> dict:
+    """Median, least and largest of repeated readings."""
+    return {"median": statistics.median(values), "min": min(values), "max": max(values),
+            "runs": values}
+
+
+def bucket_times(model, qmodel, images, size: int, max_batch: int, repeats: int = 3,
+                 window_s: float = 2.0, min_images: int = 256) -> dict:
+    """For every serving bucket, float32 and int8 (the path's Predictor
+    settings): predict_many img/s over a window of at least ``min_images``
+    images and about ``window_s`` seconds (sized from a warm-up call),
+    ``repeats`` times; and the model's ms an image, ``repeats`` medians of
+    CUDA events. Each as its median, least and largest reading."""
     import torch
 
     from weaklysuperviseddl_tpu_torch.pipelines.serve import Predictor, model_inputs
@@ -794,15 +810,26 @@ def bucket_times(model, qmodel, images, size: int, max_batch: int) -> dict:
                              device="cuda")
             if kind == "int8":
                 pred.quantized = qmodel
-            n = max(2 * b, 16)
-            pred.predict_many(images[:b])  # warm: this batch shape's algorithms
+            pred.predict_many(images[:b])  # this batch shape's algorithms
+            warm = images[:max(2 * b, 16)]
             t0 = time.perf_counter()
-            pred.predict_many(images[:n])
-            row[f"{kind}_img_per_s"] = n / (time.perf_counter() - t0)
+            pred.predict_many(warm)
+            rate = len(warm) / (time.perf_counter() - t0)
+            n = min(max(min_images, int(rate * window_s)), 4096)
+            window = images[np.arange(-(-n // b) * b) % len(images)]
+            rates, seconds = [], []
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                pred.predict_many(window)
+                seconds.append(time.perf_counter() - t0)
+                rates.append(len(window) / seconds[-1])
+            row[f"{kind}_img_per_s"] = spread(rates)
+            row[f"{kind}_window"] = {"images": len(window), "seconds": seconds}
             m = qmodel if kind == "int8" else model
             with torch.inference_mode():
-                row[f"{kind}_model_ms_per_image"] = cuda_ms(lambda: m(x[:b]), runs=3,
-                                                            warmup=1) / b
+                m(x[:b])
+                row[f"{kind}_model_ms_per_image"] = spread(
+                    [cuda_ms(lambda: m(x[:b]), runs=3, warmup=0) / b for _ in range(repeats)])
         out[b] = row
         b *= 2
     return out
@@ -870,10 +897,12 @@ def phase_serve_int8():
           "int8 masks are not binary [128,256,256]")
 
     # the card against the CPU port, under the same calibration file
+    # (the first two rows and the last two of the first batch-64 launch)
+    rows = [0, 1, max_batch - 2, max_batch - 1]
     cpu = Predictor(cpu_model, size=size, max_batch=2, clean=True, packed=True, device="cpu")
     cpu.quantize(state_path=str(state_file))
-    cpu_masks = cpu(evals[:2])
-    card_cpu = float((cpu_masks == int8_masks[:2]).mean())
+    cpu_masks = cpu.predict_many(evals[rows])
+    card_cpu = float((cpu_masks == int8_masks[rows]).mean())
     check(card_cpu >= 0.995, f"int8 card/CPU mask agreement {card_cpu} < 0.995")
     agree_fp32 = float((int8_masks[:max_batch] == float_masks).mean())
 
@@ -882,7 +911,7 @@ def phase_serve_int8():
          size=size, max_batch=max_batch, bias_shift=margin, calibration="64 synthetic pets",
          sites=len(kinds), conv_sites=kinds.count("conv"), dot_sites=kinds.count("dot"),
          quantize_s=quantize_s, kernels_equal_plain=True, gemm_exact=True,
-         card_cpu_int8_agreement=card_cpu, int8_fp32_agreement=agree_fp32,
+         card_cpu_int8_agreement=card_cpu, card_cpu_rows=rows, int8_fp32_agreement=agree_fp32,
          fg_frac_int8=float(int8_masks.mean()), healthz_int8=healthz["int8"],
          launches_main_path=launches, per_forward_at_batch_64=per_site,
          int8_device_ms_at_batch_64=breakdown, buckets=times)
