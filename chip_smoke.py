@@ -148,6 +148,17 @@ Phases, one JSON line each:
                (one launch per batch of 32 per run, image plan); the grid's
                keep-largest masks equal to the plain keep-largest of the same
                thresholded CAMs in the run's order; seconds per grid run.
+ 17. basnet  - BASNet(3,1) at 256² (random weights, seed 0; no hand kernel):
+               its dout for 8 synthetic test pets on the card against the CPU
+               (<= 1e-4, thresholded maps >= 0.999 equal); the reference's
+               protocol through run_inference on 10 pets and through the CLI's
+               `basnet` on the card by default (mean IoU equal); saliency_step
+               img/s at batch 16 (20 calls with upload and readback); the
+               model's ms an image at batch 1, 8, 16 and 32 (three medians of
+               CUDA events) and the device ms of a batch-16 forward by kind of
+               kernel; a cut of the demo's training recipe (64 pets x 30 epochs,
+               batch 8): img/s, ms a step, peak memory, the loss falling and the
+               held-out IoU above random init's.
 Then the script's seconds by phase, the card's name and power limit, the
 kernels line (each kernel's ``ms`` is the CUDA-event time of one call,
 ``back_to_back_ms`` the same over calls in a row, ``device_ms`` the summed
@@ -2301,6 +2312,174 @@ def phase_ablations():
     return launches
 
 
+# kinds of kernel in a BASNet forward, by a key in the profiler's name, the
+# first kind that matches (cuDNN's BatchNorm kernels carry "cudnn" too)
+BASNET_KINDS = (("batch_norm", ("batch_norm", "bn_fw", "bn_bw")),
+                ("upsample", ("upsample",)), ("max_pool", ("max_pool",)),
+                ("cat", ("CatArray", "cat_")),
+                ("conv", ("conv", "implicit", "gemm", "xmma", "cudnn", "cutlass", "winograd",
+                          "fft", "complex", "sm90", "sm80", "dgrad", "wgrad")))
+
+
+def basnet_breakdown(model, x) -> dict:
+    """Device ms of one BASNet forward by kind of kernel (torch.profiler),
+    and the longest kernels by the names the profiler prints."""
+    import torch
+
+    with torch.inference_mode():
+        total, names = device_ms(lambda: model(x), runs=3, warmup=1)
+
+    def kind(name):
+        low = name.lower()
+        for k, keys in BASNET_KINDS:
+            if any(key.lower() in low for key in keys):
+                return k
+        return "elementwise_and_other"
+
+    kinds = {k: 0.0 for k, _ in BASNET_KINDS} | {"elementwise_and_other": 0.0}
+    for name, ms in names.items():
+        kinds[kind(name)] += ms
+    return {"total_ms": total, "by_kind_ms": kinds,
+            "top": sorted(((short_name(k)[:120], v) for k, v in names.items()),
+                          key=lambda kv: -kv[1])[:10]}
+
+
+def phase_basnet():
+    """BASNet saliency (pipelines/basnet_infer.py, train/basnet.py, the CLI's
+    ``basnet``) at 256², random weights from seed 0. No hand kernel: cuDNN
+    convolutions and plain PyTorch around them."""
+    import contextlib
+    import copy
+    import io
+    import os
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch import cli
+    from weaklysuperviseddl_tpu_torch.data.dataset import download_data
+    from weaklysuperviseddl_tpu_torch.data.preprocess import normalize_images, preprocess_batch
+    from weaklysuperviseddl_tpu_torch.pipelines import basnet_demo
+    from weaklysuperviseddl_tpu_torch.pipelines.basnet_infer import (
+        IMG_SIZE,
+        build_basnet,
+        norm_pred,
+        run_inference,
+        saliency_dout,
+        saliency_step,
+    )
+    from weaklysuperviseddl_tpu_torch.train.basnet import train_basnet
+
+    t_phase = time.perf_counter()
+    model = build_basnet(device="cuda", generator=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == 87_060_360, f"BASNet has {n_params} parameters")
+    cpu_model = copy.deepcopy(model).cpu()
+
+    # the card against the CPU, same weights, 8 synthetic test pets at 256²
+    pets8 = pets("test", 8, IMG_SIZE, seed=0)
+    card = saliency_dout(model, torch.from_numpy(pets8).cuda()).cpu()
+    cpu = saliency_dout(cpu_model, torch.from_numpy(pets8))
+    del cpu_model
+    dout_err = float((card - cpu).abs().max())
+    masks_agree = float(((norm_pred(card) > 0.5) == (norm_pred(cpu) > 0.5)).float().mean())
+    check(card.shape == (8, IMG_SIZE, IMG_SIZE) and bool(torch.isfinite(card).all()),
+          f"dout {tuple(card.shape)} not finite [8,256,256]")
+    check(dout_err <= 1e-4, f"BASNet dout card/CPU max abs err {dout_err} > 1e-4")
+    check(masks_agree >= 0.999, f"BASNet card/CPU mask agreement {masks_agree} < 0.999")
+
+    # the reference's protocol: run_inference on 10 test pets, no PNGs
+    test_ds = download_data(None, split="test", synthetic_size=10)
+    t0 = time.perf_counter()
+    results, mean_iou, mean_acc = run_inference(test_ds, model=model, num_images=10,
+                                                output_folder=None, log=lambda *_: None)
+    protocol_s = time.perf_counter() - t0
+    check(len(results) == 10 and all(0.0 <= v <= 1.0 for r in results for v in r),
+          f"protocol results {results}")
+    # the same through the CLI a user calls, on the card by default, in a
+    # scratch directory (PNGs where PIL is installed)
+    cli_dir = CKPT_ROOT / "basnet_cli"
+    cli_dir.mkdir(parents=True, exist_ok=True)
+    out, cwd = io.StringIO(), os.getcwd()
+    os.chdir(cli_dir)
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["basnet", "--num-images", "10"])
+    finally:
+        os.chdir(cwd)
+    cli_lines = out.getvalue().splitlines()
+    check(rc == 0 and cli_lines[-1].startswith("Mean IoU: "), f"basnet CLI: {cli_lines[-3:]}")
+    cli_iou = float(cli_lines[-1].split("Mean IoU: ")[1].split(",")[0])
+    check(abs(cli_iou - mean_iou) <= 1e-3,
+          f"basnet CLI mean IoU {cli_iou} against run_inference's {mean_iou}")
+
+    # batched saliency_step throughput at batch 16, 20 calls with the uint8
+    # upload and the maps' readback (the JAX package's run_aux_scale window)
+    pets64 = pets("test", 64, IMG_SIZE, seed=0)
+    batch16 = pets64[:16]
+    saliency_step(model, torch.from_numpy(batch16).cuda()).cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        saliency_step(model, torch.from_numpy(batch16).cuda()).cpu()
+    throughput = 16 * 20 / (time.perf_counter() - t0)
+
+    # the model's ms an image by batch: three medians of CUDA events each
+    x, _ = preprocess_batch(torch.from_numpy(pets64[:32]).cuda(), None, size=IMG_SIZE)
+    x = normalize_images(x).permute(0, 3, 1, 2).contiguous()
+    by_batch = {}
+    with torch.inference_mode():
+        for b in (1, 8, 16, 32):
+            model(x[:b])
+            by_batch[b] = spread([cuda_ms(lambda: model(x[:b]), runs=5, warmup=1) / b
+                                  for _ in range(3)])
+    breakdown = basnet_breakdown(model, x[:16])
+
+    # a cut of the demo's recipe: trainval pets at 256², batch 8, 3e-4, clip 1,
+    # cosine to 1e-5; held-out IoU through the engine before and after
+    n_train, n_held, epochs, bs = 64, 32, 30, 8
+    train_ds = download_data(None, split="trainval", synthetic_size=n_train,
+                             image_size=IMG_SIZE, seed=0)
+    held_ds = download_data(None, split="test", synthetic_size=n_held, image_size=IMG_SIZE,
+                            seed=0)
+    del model
+    trained = build_basnet(device="cuda", generator=torch.Generator().manual_seed(0))
+    _, iou0, _ = run_inference(held_ds, model=trained, num_images=n_held, output_folder=None,
+                               log=lambda *_: None)
+    images, targets = basnet_demo.training_arrays(train_ds, n_train, bs, IMG_SIZE, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, history = train_basnet(trained, images, targets, epochs=epochs, batch_size=bs, lr=3e-4,
+                              clip_norm=1.0, lr_end=1e-5, log=lambda *_: None)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    _, iou1, acc1 = run_inference(held_ds, model=trained, num_images=n_held,
+                                  output_folder=None, log=lambda *_: None)
+    check(all(np.isfinite(history)), f"BASNet training losses {history}")
+    check(history[-1] < history[0], f"BASNet loss did not fall: {history[0]} -> {history[-1]}")
+    check(iou1 > iou0, f"BASNet held-out IoU {iou1} not above random init's {iou0}")
+    steps = epochs * n_train // bs
+    emit("basnet", entry="pipelines.basnet_infer (build_basnet, saliency_step, run_inference), "
+         "train.basnet.train_basnet, cli basnet",
+         model="BASNet(3, 1) at 256², 87.06 M parameters, random init (seed 0)",
+         params=n_params, card_cpu={"images": 8, "dout_max_abs_err": dout_err,
+                                    "mask_agreement": masks_agree},
+         protocol={"images": 10, "mean_iou": mean_iou, "mean_acc": mean_acc,
+                   "seconds": protocol_s, "cli_mean_iou": cli_iou,
+                   "cli_pngs": (cli_dir / "basnet_outputs").is_dir()},
+         saliency_img_per_s_batch16=throughput,
+         model_ms_per_image_by_batch=by_batch, device_ms_batch16=breakdown,
+         training={"cut": {"train_images": n_train, "held_out_images": n_held,
+                           "epochs": epochs, "of_demo": "200 images, 50 held out, 120 epochs"},
+                   "batch_size": bs, "steps": steps, "seconds": train_s,
+                   "img_per_s": steps * bs / train_s, "ms_per_step": train_s / steps * 1e3,
+                   "peak_mem_gb": peak_gb, "loss_first_epoch": history[0],
+                   "loss_last_epoch": history[-1], "held_out_iou_random_init": iou0,
+                   "held_out_iou_trained": iou1, "held_out_acc_trained": acc1},
+         wall_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
 
@@ -2345,6 +2524,7 @@ def run_phases(seconds: dict, t_start: float) -> int:
     shutil.rmtree(CKPT_ROOT)
     timed("supervised", phase_supervised)
     ablation_launches = timed("ablations", phase_ablations)
+    timed("basnet", phase_basnet)
 
     from weaklysuperviseddl_tpu_torch.masks.components import label_components
     from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda, plan_for

@@ -1,8 +1,8 @@
 """The port on the card: the CUDA kernels (connected components, refinement
 and its plans, the window-loss sum and gradient, the CRF's bilateral filter,
-the LayerCAM fusion) against their plain versions,
-and the serving path on CUDA against the CPU. Needs an NVIDIA GPU and nvcc;
-skipped elsewhere. Imports no JAX, so it runs where JAX is absent:
+the LayerCAM fusion) against their plain versions, the serving path and
+BASNet on CUDA against the CPU. Needs an NVIDIA GPU and nvcc; skipped
+elsewhere. Imports no JAX, so it runs where JAX is absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -612,3 +612,68 @@ def test_int8_predictor_on_card_equals_cpu(cuda, tmp_path):
     got = gpu(imgs)
     assert qconv.dequant_epilogue.launches > before
     np.testing.assert_array_equal(got, cpu(imgs))
+
+
+@pytest.mark.parametrize("inputs", ["pets", "noise"])
+def test_basnet_on_card_equals_cpu(cuda, inputs):
+    """BASNet's saliency for 64² images (the engine's resize to 256² and
+    normalisation) and its eight maps on a 64² input, on the card against the
+    same weights on the CPU, within 1e-4, in float32 with TF32 off as the
+    port computes (with TF32 on, 2-3e-4 apart)."""
+    import copy
+
+    from weaklysuperviseddl_tpu_torch.data.dataset import download_data
+    from weaklysuperviseddl_tpu_torch.data.preprocess import normalize_images, preprocess_batch
+    from weaklysuperviseddl_tpu_torch.pipelines.basnet_infer import (
+        build_basnet,
+        norm_pred,
+        saliency_dout,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_basnet(device="cpu", generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(model).to(cuda)
+    if inputs == "pets":
+        imgs = np.stack(download_data(None, split="test", synthetic_size=2, image_size=64).images)
+    else:
+        imgs = (np.random.default_rng(3).uniform(0, 1, (2, 64, 64, 3)) * 255).astype(np.uint8)
+    imgs = torch.from_numpy(imgs)
+    want, got = saliency_dout(model, imgs), saliency_dout(card, imgs.to(cuda)).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert ((norm_pred(got) > 0.5) == (norm_pred(want) > 0.5)).float().mean() >= 0.999
+    x, _ = preprocess_batch(imgs, None, size=64)
+    x = normalize_images(x).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        want, got = model(x), card(x.to(cuda))
+    for w, g in zip(want, got):
+        assert g.shape == (2, 1, 64, 64)
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4)
+
+
+def test_basnet_pngs_without_pil_raise_before_the_forward(cuda, monkeypatch, tmp_path):
+    """Where PIL is not installed (the card's host), run_inference with an
+    output folder raises ImportError before the model runs."""
+    import builtins
+
+    from weaklysuperviseddl_tpu_torch.data.dataset import download_data
+    from weaklysuperviseddl_tpu_torch.pipelines.basnet_infer import build_basnet, run_inference
+
+    model = build_basnet(device=cuda)
+    calls = []
+    model.register_forward_pre_hook(lambda *_: calls.append(1))
+    real_import = builtins.__import__
+
+    def no_pil(name, *args, **kwargs):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError("No module named 'PIL'")
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_pil)
+    ds = download_data(None, split="test", synthetic_size=2)
+    with pytest.raises(ImportError, match="PIL"):
+        run_inference(ds, model=model, num_images=2, output_folder=str(tmp_path / "out"))
+    assert not calls and not (tmp_path / "out").exists()
+    _, iou, acc = run_inference(ds, model=model, num_images=2, output_folder=None,
+                                log=lambda *_: None)
+    assert calls and 0.0 <= iou <= 1.0 and 0.0 <= acc <= 1.0

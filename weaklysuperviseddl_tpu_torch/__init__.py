@@ -5,12 +5,17 @@ its module names so each module's counterpart is easy to find, and imports
 nothing of it. Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card and without that, it raises.
 
-Ported so far: the mask-serving path (``pipelines/serve.py``) with its
-connected-components kernel (``ops/cc.py`` + ``csrc/cc.cu``), and the
-weakly-supervised alternating cycle (``pipelines/weakly.py``) with the
-mask-refinement kernel (``ops/refine.py`` + ``csrc/refine.cu``).
+Ported so far: the mask-serving path (``pipelines/serve.py``, int8 by
+default) with its connected-components kernel (``ops/cc.py`` +
+``csrc/cc.cu``); the weakly-supervised alternating cycle
+(``pipelines/weakly.py``) with the mask-refinement, CRF-filter, LayerCAM and
+window-loss kernels; the supervised baseline and the ablation grid; and
+BASNet saliency (``models/basnet.py``, ``pipelines/basnet_infer.py``,
+``train/basnet.py``).
 """
 
 from weaklysuperviseddl_tpu_torch.device import resolve_device
+from weaklysuperviseddl_tpu_torch.models.basnet import BASNet
+from weaklysuperviseddl_tpu_torch.pipelines.basnet_infer import build_basnet, run_inference
 
-__all__ = ["resolve_device"]
+__all__ = ["BASNet", "build_basnet", "resolve_device", "run_inference"]

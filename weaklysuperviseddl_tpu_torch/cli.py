@@ -9,9 +9,11 @@ weaklysuperviseddl_tpu/cli.py):
     python -m weaklysuperviseddl_tpu_torch serve [--smoke] [--device cpu] [--port 8765]
         [--checkpoint PATH] [--no-int8 | --calib-dir DIR] [--calib-state PATH]
     python -m weaklysuperviseddl_tpu_torch client --url http://host:8765 --image photo.jpg
+    python -m weaklysuperviseddl_tpu_torch basnet [--weights ./Weights/basnet.pth]
+        [--num-images 10] [--device cpu]
 
-``weakly``, ``supervised``, ``ablations`` and ``serve`` run on the card
-unless ``--device cpu`` is given, in float32 with TF32 off for cuDNN
+``weakly``, ``supervised``, ``ablations``, ``serve`` and ``basnet`` run on the
+card unless ``--device cpu`` is given, in float32 with TF32 off for cuDNN
 convolutions and matmuls. The training commands take dotted overrides onto
 ``config.ExperimentConfig`` (any depth: ``--alternating.refine.num_steps
 10``) and print their result as one JSON line. ``weakly --checkpoint-dir``
@@ -27,7 +29,12 @@ as the JAX package does (``--no-int8``: float32): calibrated on the images of
 synthetic ones, or loaded from ``--calib-state``, which is written after a
 calibration; if the int8 masks agree with the float ones on under 0.99 of the
 calibration batch's pixels, the float model serves, with a WARNING.
-``--smoke`` skips int8.
+``--smoke`` skips int8. ``basnet`` is the reference's
+``RunInference.py``: BASNet saliency on the first ``--num-images`` test
+images (synthetic without Pet data), the weights of ``--weights`` when the
+file exists, else seeded random ones, per-image and mean IoU and accuracy
+against trimap == 1, and the maps as PNGs in ``./basnet_outputs`` (skipped,
+with a WARNING, where PIL is not installed).
 """
 
 from __future__ import annotations
@@ -265,6 +272,25 @@ def _serve(args, parser) -> int:
     return 0
 
 
+def _basnet(args) -> int:
+    """The reference's ``RunInference.py`` main (the JAX package's
+    ``compat/RunInference.py::main``) on the port's engine."""
+    import importlib.util
+
+    from weaklysuperviseddl_tpu_torch.data.dataset import download_data
+    from weaklysuperviseddl_tpu_torch.pipelines.basnet_infer import run_inference
+
+    device = _device(args)
+    output_folder = "./basnet_outputs"
+    if importlib.util.find_spec("PIL") is None:
+        print("WARNING: PIL is not installed; the saliency PNGs are not written", flush=True)
+        output_folder = None
+    dataset = download_data(None, split="test", synthetic_size=args.num_images)
+    run_inference(dataset, weights_path=args.weights, num_images=args.num_images,
+                  output_folder=output_folder, device=device)
+    return 0
+
+
 def _client(args, parser) -> int:
     import urllib.error
 
@@ -297,14 +323,14 @@ def _client(args, parser) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="weaklysuperviseddl_tpu_torch")
     parser.add_argument("command", choices=["weakly", "supervised", "ablations", "serve",
-                                            "client"])
+                                            "client", "basnet"])
     parser.add_argument("--smoke", action="store_true",
                         help="weakly, supervised: config.smoke_config(); ablations: that "
                              "config, the grid's first point, one repeat; serve: depth 18, "
                              "width 0.25, 48², max_batch 2, one self-request, then exit")
     parser.add_argument("--device", default=None,
-                        help="weakly, supervised, ablations, serve: torch device (default: "
-                             "the card; 'cpu' to run on the CPU)")
+                        help="weakly, supervised, ablations, serve, basnet: torch device "
+                             "(default: the card; 'cpu' to run on the CPU)")
     parser.add_argument("--alternating", action="store_true",
                         help="weakly: run the alternating train↔refine loop after the "
                              "initial cycle")
@@ -335,6 +361,11 @@ def main(argv=None) -> int:
     parser.add_argument("--calib-state", default=None,
                         help="serve: int8 calibration file (JSON, the JAX package's format): "
                              "loaded if it exists, written after calibration otherwise")
+    parser.add_argument("--weights", default="./Weights/basnet.pth",
+                        help="basnet: the reference's BASNet state dict (random init if the "
+                             "file does not exist)")
+    parser.add_argument("--num-images", type=int, default=10,
+                        help="basnet: test images to evaluate")
     parser.add_argument("--url", default="http://127.0.0.1:8765",
                         help="client: base URL of a running MaskServer")
     parser.add_argument("--image", default=None,
@@ -356,6 +387,8 @@ def main(argv=None) -> int:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
     if args.command == "serve":
         return _serve(args, parser)
+    if args.command == "basnet":
+        return _basnet(args)
     return _client(args, parser)
 
 

@@ -1,18 +1,20 @@
 """JAX variable tree → the port's ``state_dict`` (carries weights across).
 
-The exact inverses of the JAX package's ``models/torch_import.deeplab_variables``
-and ``cam_classifier_variables``: they take the JAX model's ``{"params",
-"batch_stats"}`` with numpy leaves and return the torchvision-layout state
-dict that ``models/deeplabv3.DeepLabV3`` or ``models/classifier.CamClassifier``
-loads. Only numpy crosses between the two packages.
+The exact inverses of the JAX package's ``models/torch_import.deeplab_variables``,
+``cam_classifier_variables`` and (for BASNet) ``torch_to_flax``: they take the
+JAX model's ``{"params", "batch_stats"}`` with numpy leaves and return the
+torch-layout state dict that ``models/deeplabv3.DeepLabV3``,
+``models/classifier.CamClassifier`` or ``models/basnet.BASNet`` loads. Only
+numpy crosses between the two packages.
 
 Layout conversions:
   conv kernel (kh,kw,I,O)   → weight (O,I,kh,kw)
   dense kernel (I,O)        → weight (O,I)
   bn   scale/bias           → weight/bias
        batch_stats mean/var → running_mean/running_var (+ num_batches_tracked 0)
-Key rewrites: ``layerX_Y`` → ``layerX.Y``; ``downsample_conv/bn`` →
-``downsample.0/1``; the ASPP and head names → torchvision's ``classifier.*``.
+Key rewrites: ``layerX_Y`` → ``layerX.Y``, ``encoderX_Y`` → ``encoderX.Y``;
+``downsample_conv/bn`` → ``downsample.0/1``; the ASPP and head names →
+torchvision's ``classifier.*``.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ def _module_name(path: str) -> str:
         return f"classifier.0.convs.{int(m.group(2)) + 1}.{1 if m.group(1) else 0}"
     if path in _HEAD:
         return _HEAD[path]
-    path = re.sub(r"(layer\d)_(\d+)", r"\1.\2", path)
+    path = re.sub(r"(layer\d|encoder\d)_(\d+)", r"\1.\2", path)
     return path.replace("downsample_conv", "downsample.0").replace("downsample_bn", "downsample.1")
 
 
@@ -71,6 +73,12 @@ def cam_classifier_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Te
     params = dict(variables["params"]["backbone"])
     params["fc"] = variables["params"]["fc"]
     return _state_dict(params, variables["batch_stats"]["backbone"])
+
+
+def basnet_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX BASNet ``{"params", "batch_stats"}`` → the port's ``BASNet`` state
+    dict, the inverse of ``torch_import.torch_to_flax`` on it."""
+    return _state_dict(variables["params"], variables["batch_stats"])
 
 
 def _state_dict(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:

@@ -100,6 +100,28 @@ class BasicBlock(nn.Module):
         return torch.relu(out + res)
 
 
+class BasicBlockDe(nn.Module):
+    """Decoder BasicBlock whose residual path is a conv + BN + ReLU instead of
+    the identity (BASNet's block family; the reference's ``resnet_model.py``)."""
+
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, dilation=1):
+        super().__init__()
+        self.convRes = _conv(inplanes, planes, 3, stride, dilation)
+        self.bnRes = BatchNorm2d(planes)
+        self.conv1 = _conv(inplanes, planes, 3, stride, dilation)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = _conv(planes, planes, 3, 1, dilation)
+        self.bn2 = BatchNorm2d(planes)
+
+    def forward(self, x):
+        res = torch.relu(self.bnRes(self.convRes(x)))
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        return torch.relu(out + res)
+
+
 class Bottleneck(nn.Module):
     """1-3-1 bottleneck, expansion 4 (ResNet-50)."""
 

@@ -9,3 +9,7 @@ from weaklysuperviseddl_tpu_torch.pipelines.ablations import (  # noqa: F401
     run_ablation,
     run_ablation_experiment,
 )
+from weaklysuperviseddl_tpu_torch.pipelines.basnet_infer import (  # noqa: F401
+    build_basnet,
+    run_inference,
+)
