@@ -159,6 +159,27 @@ Phases, one JSON line each:
                kernel; a cut of the demo's training recipe (64 pets x 30 epochs,
                batch 8): img/s, ms a step, peak memory, the loss falling and the
                held-out IoU above random init's.
+ 18. bf16    - the bfloat16 compute dtype. K5 on the bfloat16 classifier's own
+               layer3 and layer4 activations and gradients (32 pets, 224²):
+               bit-equal to K5 on their float32 upcasts, within 1e-6 of
+               plain, two launches identical, timed beside its bound (bytes
+               of bfloat16 inputs) and beside the float32 launch; the path,
+               layercam(fusion="pallas") on that classifier, with the counts
+               by input type reset just before and read just after (2
+               bfloat16 launches); the weakly phase's cut cycle with
+               classifier.dtype = seg.dtype = bfloat16 (K1 and K2 counted),
+               its trained models against float32 builds of the same
+               weights (pseudo-masks of 32 pets and DeepLabV3's argmax on 8,
+               each >= 0.99); a segmentation step at batch 4 and BASNet (a
+               forward at batch 16, a train step at batch 8) in float32, TF32
+               (flags on for that measurement only) and bfloat16: ms, img/s,
+               peak GB; BASNet's bfloat16 saliency masks against float32's
+               (>= 0.99).
+The serve_int8 line also profiles DeepLabV3's float32 forward layer by
+layer at batches 16 and 32 (each convolution of layer3, layer4 and the head
+replayed alone: its kernels and device ms an image; those whose kernels
+change), and times the whole forward at 16, 32 and 64 as it runs, with
+cudnn.benchmark and in channels_last.
 Then the script's seconds by phase, the card's name and power limit, the
 kernels line (each kernel's ``ms`` is the CUDA-event time of one call,
 ``back_to_back_ms`` the same over calls in a row, ``device_ms`` the summed
@@ -173,6 +194,7 @@ printed. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import shutil
@@ -918,6 +940,7 @@ def phase_serve_int8():
     agree_fp32 = float((int8_masks[:max_batch] == float_masks).mean())
 
     times = bucket_times(model, qmodel, evals, size, max_batch)
+    profile = conv_profile(model, x)
     emit("serve_int8", model="DeepLabV3-ResNet50 os8 width 1.0, 2 classes, random init (seed 0)",
          size=size, max_batch=max_batch, bias_shift=margin, calibration="64 synthetic pets",
          sites=len(kinds), conv_sites=kinds.count("conv"), dot_sites=kinds.count("dot"),
@@ -925,7 +948,7 @@ def phase_serve_int8():
          card_cpu_int8_agreement=card_cpu, card_cpu_rows=rows, int8_fp32_agreement=agree_fp32,
          fg_frac_int8=float(int8_masks.mean()), healthz_int8=healthz["int8"],
          launches_main_path=launches, per_forward_at_batch_64=per_site,
-         int8_device_ms_at_batch_64=breakdown, buckets=times)
+         int8_device_ms_at_batch_64=breakdown, buckets=times, fp32_conv_profile=profile)
     return launches, per_site, breakdown
 
 
@@ -986,6 +1009,24 @@ def synthetic_path_batch(model, n: int, size: int, seed: int):
         S = torch.softmax(model.logits_nhwc(x), dim=-1).contiguous()
     masks = torch.from_numpy((trimaps == 1).astype(np.int32)).to(dev)
     return S, x.contiguous(), masks
+
+
+@contextlib.contextmanager
+def dilated_aspp():
+    """DeepLabV3's ASPP as dilated convolutions, not the tap plan, while the
+    context lasts: the refine phase's S inputs stay the forward its gates
+    were set on. The tap plan's S (the same function within float noise)
+    moves pixels within 0.05 of the threshold, where K1 and the plain version
+    may part by reordered float32 sums: 275 of 262,144 pixels at lr 0.1
+    against 219 (0.999 allowed), none of them farther from the threshold."""
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import AtrousConv
+
+    taps = AtrousConv.taps
+    AtrousConv.taps = lambda self, H, W: None
+    try:
+        yield
+    finally:
+        AtrousConv.taps = taps
 
 
 def loss_rel_err(got, want) -> float:
@@ -1053,9 +1094,12 @@ def phase_refine():
     # 0.1 a pixel whose S is near the threshold ends on the side float noise
     # picks: with the model's S (near 0.5 over wide areas) mismatches are
     # allowed only there. v1 and v1sym against plain, v2_aff against v1.
+    # The S inputs keep the ASPP's dilated convolutions (dilated_aspp).
     model = init_weights(DeepLabV3(2, 50, 1.0), torch.Generator().manual_seed(1)).eval().cuda()
-    centre_classifier_bias(model, _requests(np.random.default_rng(1), 4, (256, 256)), 256)
-    S, x, masks = synthetic_path_batch(model, 4, 256, seed=5)
+    with dilated_aspp():
+        centre_classifier_bias(model, _requests(np.random.default_rng(1), 4, (256, 256)), 256)
+        S, x, masks = synthetic_path_batch(model, 4, 256, seed=5)
+        S8, x8, masks8 = synthetic_path_batch(model, 8, 256, seed=6)
     rng = np.random.default_rng(9)
     S_rand = rng.uniform(0.1, 1, tuple(S.shape)).astype(np.float32)
     S_rand = torch.from_numpy(S_rand / S_rand.sum(-1, keepdims=True)).cuda()
@@ -1108,7 +1152,6 @@ def phase_refine():
     # every plan's time at three configurations: the ncut path's [4,256,256]
     # (C=2, 20 steps), scripts/bench_refine_plans.py's [8,256,256] (10 steps),
     # and the boundary protocol's [4,256,256] (75 steps, lambda 0.5, sigma_space 10)
-    S8, x8, masks8 = synthetic_path_batch(model, 8, 256, seed=6)
     boundary_kw = dict(loss="boundary", num_steps=75, lambda_boundary=0.5, sigma_space=10.0)
     configs = {"ncut_4x256_20_steps": ((S, x, masks), {}, (4, 256, 256), 20, "ncut"),
                "ncut_8x256_10_steps": ((S8, x8, masks8), {"num_steps": 10}, (8, 256, 256), 10,
@@ -2480,6 +2523,359 @@ def phase_basnet():
          wall_s=time.perf_counter() - t_phase)
 
 
+def conv_profile(model, x, batches=(16, 32)) -> dict:
+    """DeepLabV3's float32 forward, layer by layer, at each of ``batches``:
+    every convolution of layer3, layer4 and the head (the 32² maps, where
+    the dilated convolutions are) replayed alone on the input it gets in the
+    forward, with the kernels the profiler names and their device ms an
+    image; the
+    convolutions whose kernels change between the batches, or whose ms an
+    image grows by more than half; and the whole forward's ms an image at
+    batches 16, 32 and 64 as it runs, with cudnn.benchmark, and in
+    channels_last (each a median of CUDA events; every setting restored)."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import AtrousConv
+
+    out = {"by_conv": {}}
+    for b in batches:
+        inputs = {}
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args, name=name: inputs.setdefault(name, args[0]))
+            for name, m in model.named_modules() if isinstance(m, torch.nn.Conv2d)
+            and name.startswith(("backbone.layer3", "backbone.layer4", "classifier"))]
+        try:
+            with torch.inference_mode():
+                model(x[:b])
+        finally:
+            for h in hooks:
+                h.remove()
+        with torch.inference_mode():
+            for name, inp in inputs.items():
+                m = model.get_submodule(name)
+                row = out["by_conv"].setdefault(name, {"input": list(inp.shape[1:]),
+                                                       "kernel": list(m.weight.shape[2:]),
+                                                       "dilation": list(m.dilation)})
+                row[str(b)] = top_kernels(lambda: m(inp), b)
+                if isinstance(m, AtrousConv):
+                    # the dilated convolution this branch ran before the tap plan
+                    row[f"{b}_dilated_conv"] = top_kernels(lambda: F.conv2d(
+                        inp, m.weight, None, 1, m.rate, m.rate), b)
+        del inputs
+    lo, hi = (str(b) for b in batches)
+    out["changed"] = [
+        name for name, row in out["by_conv"].items()
+        if [k for k, _ in row[lo]["kernels"]] != [k for k, _ in row[hi]["kernels"]]
+        or (row[lo]["ms_per_image"] and row[hi]["ms_per_image"]
+            and row[hi]["ms_per_image"] > 1.5 * row[lo]["ms_per_image"])]
+    whole = {}
+    bench = torch.backends.cudnn.benchmark
+    try:
+        for setting in ("default", "cudnn_benchmark", "channels_last"):
+            torch.backends.cudnn.benchmark = setting == "cudnn_benchmark"
+            m, xs = model, x
+            if setting == "channels_last":
+                m = copy.deepcopy(model).to(memory_format=torch.channels_last)
+                xs = x.contiguous(memory_format=torch.channels_last)
+            with torch.inference_mode():
+                whole[setting] = {str(b): cuda_ms(lambda: m(xs[:b]), runs=3, warmup=1) / b
+                                  for b in (16, 32, 64)}
+            del m
+    finally:
+        torch.backends.cudnn.benchmark = bench
+    out["forward_ms_per_image"] = whole
+    return out
+
+
+def top_kernels(fn, per: int = 1, top: int = 4) -> dict:
+    """Device ms of ``fn`` per ``per`` (an image, say) from a profiler trace,
+    and its ``top`` kernels by device time, [short name, ms per ``per``]."""
+    total, names = device_ms(fn, runs=2, warmup=1, traces=3)
+    ranked = sorted(names.items(), key=lambda kv: -kv[1])[:top]
+    return {"ms_per_image": None if total is None else total / per,
+            "kernels": [[short_name(k)[:90], v / per] for k, v in ranked]}
+
+
+def seg_step_ms(model, images, masks, dtype_note: str) -> dict:
+    """One segmentation training step at batch 4 (seg_train_step, Adam behind
+    the guard): ms (median of CUDA events) and peak GB."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.train.guard import GuardedAdam
+    from weaklysuperviseddl_tpu_torch.train.segmentation import (
+        SegTrainState,
+        _prep,
+        seg_train_step,
+    )
+
+    state = SegTrainState(model, GuardedAdam(model.parameters(), lr=1e-4))
+    x, mm = _prep(torch.from_numpy(images).cuda(), torch.from_numpy(masks).cuda(), 256)
+    valid = torch.ones(4, dtype=torch.bool, device="cuda")
+    seg_train_step(state, x, mm, valid)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: seg_train_step(state, x, mm, valid), runs=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trace = top_kernels(lambda: seg_train_step(state, x, mm, valid), top=8)
+    return {"ms": ms, "img_per_s": 4e3 / ms, "peak_gb": peak, "compute": dtype_note,
+            "device_ms": trace["ms_per_image"], "top_kernels": trace["kernels"]}
+
+
+def tf32_on():
+    """A context with TF32 on for cuDNN convolutions and matmuls, restored
+    to the script's setting (off) when it ends."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+    return ctx()
+
+
+def phase_bf16():
+    """The bfloat16 compute dtype (classifier.dtype, seg.dtype, BASNet's
+    dtype): K5 on bfloat16 inputs, the cut full-width cycle in bfloat16,
+    the segmentation step and BASNet in float32, TF32 and bfloat16."""
+    import copy
+    import math
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.cam.layercam import layercam
+    from weaklysuperviseddl_tpu_torch.config import (
+        AlternatingConfig,
+        ClassifierConfig,
+        ExperimentConfig,
+        SegConfig,
+    )
+    from weaklysuperviseddl_tpu_torch.data.dataset import download_data
+    from weaklysuperviseddl_tpu_torch.data.preprocess import normalize_images, preprocess_batch
+    from weaklysuperviseddl_tpu_torch.data.synthetic import synthetic_pet_arrays
+    from weaklysuperviseddl_tpu_torch.masks.pseudo import cam_to_mask
+    from weaklysuperviseddl_tpu_torch.models.classifier import CamClassifier
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
+    from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
+    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import (
+        cam_fusion_cuda,
+        cam_fusion_plain,
+        cluster_size,
+        max_active_clusters,
+        sm_count,
+    )
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
+    from weaklysuperviseddl_tpu_torch.pipelines import basnet_demo
+    from weaklysuperviseddl_tpu_torch.pipelines.basnet_infer import (
+        IMG_SIZE,
+        build_basnet,
+        saliency_step,
+    )
+    from weaklysuperviseddl_tpu_torch.pipelines.weakly import run_weakly_supervised_alternating
+    from weaklysuperviseddl_tpu_torch.train.basnet import Adam, make_basnet_train_step
+    from weaklysuperviseddl_tpu_torch.train.segmentation import _normalize_images
+    from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch
+
+    t_phase = time.perf_counter()
+    # ---- K5 on bfloat16 act and grad: the full-width classifier in bfloat16
+    # (seed 0), its layer3 and layer4 on 32 synthetic pets at 224² ----
+    model = CamClassifier(37, 50, 1.0, dtype="bfloat16")
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.cuda().eval()
+    images, labels, _ = synthetic_pet_arrays(32, image_size=224, seed=8)
+    x, _ = preprocess_batch(torch.from_numpy((images * 255).astype(np.uint8)).cuda(), None,
+                            size=224)
+    cls = torch.from_numpy(labels).cuda()
+    xi = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+    logits, feats = model.features(xi)
+    acts = [feats["layer3"], feats["layer4"]]
+    grads = torch.autograd.grad(logits.gather(1, cls.long().view(-1, 1)).sum(), acts)
+    check(all(t.dtype == torch.bfloat16 for t in (*acts, *grads)),
+          "the bfloat16 classifier's activations or gradients are not bfloat16")
+    k5, max_err = {}, 0.0
+    for name, a, g in (("layer3", acts[0], grads[0]), ("layer4", acts[1], grads[1])):
+        a, g = a.detach().contiguous(), g.contiguous()
+        af, gf = a.float(), g.float()
+        got = cam_fusion_cuda(a, g)
+        again = cam_fusion_cuda(a, g)
+        upcast = cam_fusion_cuda(af, gf)
+        want = cam_fusion_plain(a, g)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, upcast), f"K5 on bfloat16 {name} differs from K5 on its upcasts")
+        check(torch.equal(again, got), f"K5 on bfloat16 differs between launches at {name}")
+        check(err <= 1e-6, f"K5 on bfloat16 {name} differs from plain by {err}")
+        max_err = max(max_err, err)
+        B, C, h, w = a.shape
+        S = cluster_size(B, C, sm_count(a.device))
+        # bytes: bfloat16 act and grad read once, the float32 CAM written once
+        bound_ms, bound_by = roofline(B * h * w * (2 * 2 * C + 4), 3 * B * C * h * w)
+        k5[name] = {"shape": list(a.shape), "cluster_size": S,
+                    "max_active_clusters": max_active_clusters(C, h * w, S, (h * w) % 4 == 0,
+                                                               torch.bfloat16),
+                    "max_abs_err": err, "bit_equal_to_float32_upcast": True,
+                    **kernel_ms(lambda: cam_fusion_cuda(a, g), runs=50, warmup=5),
+                    "host_ms": host_ms(lambda: cam_fusion_cuda(a, g), runs=50),
+                    "plain_ms": cuda_ms(lambda: cam_fusion_plain(a, g), runs=50, warmup=5),
+                    "float32_kernel_ms": cuda_ms(lambda: cam_fusion_cuda(af, gf), runs=50,
+                                                 warmup=5),
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+    del acts, grads, feats, logits
+    # the main path: counts from 0, layercam(fusion="pallas") on the bfloat16
+    # classifier, read after
+    cam_fusion_cuda.launches = 0
+    cam_fusion_cuda.launches_by_dtype = dict.fromkeys(cam_fusion_cuda.launches_by_dtype, 0)
+    cam_k, _ = layercam(model, x, cls, output_size=224, fusion="pallas")
+    torch.cuda.synchronize()
+    k5_launches = dict(cam_fusion_cuda.launches_by_dtype)
+    check(k5_launches == {"float32": 0, "bfloat16": 2},
+          f"layercam(fusion='pallas') in bfloat16 launched {k5_launches}")
+    cam_p, _ = layercam(model, x, cls, output_size=224, fusion="xla")
+    layercam_err = float((cam_k - cam_p).abs().max())
+    check(layercam_err <= 1e-5, f"bfloat16 layercam pallas vs xla: {layercam_err}")
+    check(cam_k.dtype == torch.float32 and tuple(cam_k.shape) == (32, 224, 224)
+          and bool(torch.isfinite(cam_k).all()), "bfloat16 CAMs are not finite float32")
+    del model
+
+    # ---- the cut full-width cycle in bfloat16, as the weakly phase runs it ----
+    cfg = ExperimentConfig(
+        classifier=ClassifierConfig(epochs=2, dtype="bfloat16"),
+        seg=SegConfig(epochs=1, dtype="bfloat16"),
+        alternating=AlternatingConfig(num_alternations=2, epochs_per_round=1, refine_repeats=2))
+    sw = Stopwatch("cuda")
+    reset_cc_counts()
+    refine_cuda.launches = 0
+    refine_cuda.plan_launches = dict.fromkeys(refine_cuda.plan_launches, 0)
+    t0 = time.perf_counter()
+    result = run_weakly_supervised_alternating(cfg, stopwatch=sw, log=lambda *_: None,
+                                               device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {"refine": refine_cuda.launches, "cc_label": label_components_cuda.launches}
+    n_train = len(result.mask_store)
+    want_refine = math.ceil(n_train / cfg.seg.batch_size) * 2 * 2
+    check(launches["refine"] == want_refine and refine_cuda.plan_launches["v1sym"] == want_refine,
+          f"bfloat16 cycle launched refine {launches['refine']} times "
+          f"({refine_cuda.plan_launches}), expected {want_refine} v1sym")
+    check(launches["cc_label"] > 0, "the bfloat16 cycle never launched the cc kernel")
+    check_cc_image_plan("bf16")
+    m = result.metrics
+    scalars = {k: m[k] for k in ("iou", "acc", "final_loss", "alt_iou", "alt_acc")}
+    check(all(math.isfinite(v) for v in scalars.values()), f"non-finite bf16 metrics {scalars}")
+    store_images, store_masks, _ = result.mask_store.as_arrays()
+    check(store_masks.shape == (n_train, 256, 256) and set(np.unique(store_masks)) <= {0, 1},
+          "bfloat16 store masks are not binary [N,256,256]")
+    classifier, seg = result.classifier, result.seg_state.model
+    check(classifier.compute_dtype == seg.compute_dtype == torch.bfloat16
+          and all(p.dtype == torch.float32 for p in seg.parameters()),
+          "the bfloat16 cycle's models are not bfloat16 over float32 parameters")
+
+    # bfloat16 against float32 from the same weights (the cycle's trained
+    # models, loaded into float32 builds): pseudo-masks of 32 train images
+    # and DeepLabV3's argmax on 8 store images
+    fp32_cls = CamClassifier(37, 50, 1.0).cuda().eval()
+    fp32_cls.load_state_dict(classifier.state_dict())
+    fp32_seg = DeepLabV3(2, 50, 1.0).cuda().eval()
+    fp32_seg.load_state_dict(seg.state_dict())
+    train_pets = pets("trainval", 32, 224, seed=0)
+    xc, _ = preprocess_batch(torch.from_numpy(train_pets).cuda(), None, size=224)
+    cls32 = torch.arange(32, device="cuda") % 37
+    masks_by = {}
+    for key, mdl in (("bf16", classifier), ("fp32", fp32_cls)):
+        cam, _ = layercam(mdl, xc, cls32, output_size=224)
+        masks_by[key] = cam_to_mask(cam, cfg.mask.cam_thresh, True)
+    mask_agree = float((masks_by["bf16"] == masks_by["fp32"]).float().mean())
+    xs, _ = preprocess_batch(torch.from_numpy(store_images[:8]).cuda(), None, size=256)
+    xs = _normalize_images(xs).permute(0, 3, 1, 2)
+    seg.eval()
+    with torch.no_grad():
+        argmax_agree = float((seg(xs).argmax(1) == fp32_seg(xs).argmax(1)).float().mean())
+    check(mask_agree >= 0.99, f"bf16/fp32 pseudo-mask agreement {mask_agree} < 0.99")
+    check(argmax_agree >= 0.99, f"bf16/fp32 seg argmax agreement {argmax_agree} < 0.99")
+
+    # ---- the segmentation step at batch 4: float32, TF32 and bfloat16, one
+    # set of weights (the cycle's) ----
+    step = {}
+    for key, dtype in (("fp32", "float32"), ("tf32", "float32"), ("bf16", "bfloat16"),
+                       ("bf16_channels_last", "bfloat16")):
+        mdl = DeepLabV3(2, 50, 1.0, dtype=dtype).cuda()
+        mdl.load_state_dict(seg.state_dict())
+        if key == "bf16_channels_last":  # a measurement only: the path keeps torch's default
+            mdl = mdl.to(memory_format=torch.channels_last)
+        if key == "tf32":
+            with tf32_on():
+                step[key] = seg_step_ms(mdl, store_images[:4], store_masks[:4], "TF32")
+        else:
+            step[key] = seg_step_ms(mdl, store_images[:4], store_masks[:4], dtype)
+        del mdl
+    del result, classifier, seg, fp32_cls, fp32_seg
+
+    # ---- BASNet: a forward at batch 16 and a train step at batch 8 in
+    # float32, TF32 and bfloat16 (seed 0 weights), and the bfloat16
+    # saliency masks against float32's ----
+    bas = {"fp32": build_basnet(device="cuda", generator=torch.Generator().manual_seed(0))}
+    bas["bf16"] = build_basnet(device="cuda", generator=torch.Generator().manual_seed(0),
+                               dtype="bfloat16")
+    pets16 = pets("test", 16, IMG_SIZE, seed=0)
+    sal = {k: saliency_step(bas[k], torch.from_numpy(pets16).cuda()) for k in bas}
+    sal_agree = float(((sal["bf16"] > 0.5) == (sal["fp32"] > 0.5)).float().mean())
+    check(sal["bf16"].dtype == torch.float32, "bfloat16 saliency maps are not float32")
+    check(sal_agree >= 0.99, f"BASNet bf16/fp32 saliency mask agreement {sal_agree} < 0.99")
+    xb, _ = preprocess_batch(torch.from_numpy(pets16).cuda(), None, size=IMG_SIZE)
+    xb = normalize_images(xb).permute(0, 3, 1, 2).contiguous()
+    train_ds = download_data(None, split="trainval", synthetic_size=8, image_size=IMG_SIZE,
+                             seed=0)
+    ti, tt = basnet_demo.training_arrays(train_ds, 8, 8, IMG_SIZE, "cuda")
+    ti = ti.permute(0, 3, 1, 2).contiguous()
+    basnet_rows = {}
+    for key in ("fp32", "tf32", "bf16"):
+        mdl = bas["bf16" if key == "bf16" else "fp32"]
+        mdl.eval()
+        with tf32_on() if key == "tf32" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.inference_mode():
+                fwd = cuda_ms(lambda: mdl(xb), runs=5, warmup=2)
+            fwd_gb = torch.cuda.max_memory_allocated() / 2**30
+            trainee = copy.deepcopy(mdl)
+            step_fn = make_basnet_train_step(trainee, Adam(trainee.parameters(), lr=3e-4),
+                                             clip_norm=1.0)
+            step_fn(ti, tt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            train = cuda_ms(lambda: step_fn(ti, tt), runs=5, warmup=1)
+            train_gb = torch.cuda.max_memory_allocated() / 2**30
+            del trainee, step_fn
+        basnet_rows[key] = {"forward_b16_ms": fwd, "forward_img_per_s": 16e3 / fwd,
+                            "forward_peak_gb": fwd_gb, "train_step_b8_ms": train,
+                            "train_img_per_s": 8e3 / train, "train_peak_gb": train_gb}
+    del bas
+    phases = {name: {"seconds": sw.times[name], "img_per_s": sw.rate(name)} for name in sw.times}
+    emit("bf16", entry="run_weakly_supervised_alternating (classifier.dtype = seg.dtype = "
+         "bfloat16); cam/layercam fusion='pallas'; pipelines.basnet_infer.build_basnet(dtype=)",
+         k5_bf16=k5, k5_launches_main_path=k5_launches, layercam_pallas_vs_xla=layercam_err,
+         cycle={"cuts": {"classifier.epochs": 2, "seg.epochs": 1,
+                         "alternating.num_alternations": 2, "alternating.epochs_per_round": 1,
+                         "alternating.refine_repeats": 2},
+                "train_images": n_train, "wall_s": wall, "phases": phases, "metrics": m,
+                "launches_main_path": launches,
+                "bf16_vs_fp32_same_weights": {"pseudo_mask_agreement": mask_agree,
+                                              "seg_argmax_agreement": argmax_agree}},
+         seg_step_batch4=step, basnet=basnet_rows, basnet_saliency_bf16_fp32_agreement=sal_agree,
+         wall_s=time.perf_counter() - t_phase)
+    return {"launches": k5_launches["bfloat16"], "max_abs_err": max_err, **k5["layer4"],
+            "cycle_launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2525,6 +2921,7 @@ def run_phases(seconds: dict, t_start: float) -> int:
     timed("supervised", phase_supervised)
     ablation_launches = timed("ablations", phase_ablations)
     timed("basnet", phase_basnet)
+    fusion_bf16 = timed("bf16", phase_bf16)
 
     from weaklysuperviseddl_tpu_torch.masks.components import label_components
     from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda, plan_for
@@ -2551,7 +2948,8 @@ def run_phases(seconds: dict, t_start: float) -> int:
         "source": "weaklysuperviseddl_tpu_torch/csrc/cc.cu",
         "replaces": "weaklysuperviseddl_tpu/ops/pallas_cc.py:29",
         **by_path("cc_label", serve=launches, serve_int8=int8_launches["cc_label"],
-                  weakly=weakly_launches["cc_label"]),
+                  weakly=weakly_launches["cc_label"],
+                  bf16=fusion_bf16["cycle_launches"]["cc_label"]),
         "max_abs_err": max_err,
         **kernel_ms(lambda: label_components_cuda(served_masks), runs=25, warmup=3),
         "host_ms": host_ms(lambda: label_components_cuda(served_masks), runs=25),
@@ -2566,7 +2964,8 @@ def run_phases(seconds: dict, t_start: float) -> int:
         "route": "cuda",
         "source": "weaklysuperviseddl_tpu_torch/csrc/refine.cu",
         "replaces": "weaklysuperviseddl_tpu/ops/pallas_refine.py:45",
-        **by_path("refine", weakly=weakly_launches["refine"]),
+        **by_path("refine", weakly=weakly_launches["refine"],
+                  bf16=fusion_bf16["cycle_launches"]["refine"]),
         # C=2 on every path; each path phase checks its launches were all v1sym
         "plan_auto_ran": "v1sym",
         "max_abs_err": refine_timing["max_abs_err"],  # of the loss; masks equal or >= 0.9999
@@ -2644,6 +3043,21 @@ def run_phases(seconds: dict, t_start: float) -> int:
         "library_ms": None,  # no single PyTorch call computes the fusion
         "shape": fusion["shape"],  # layer4; layer3 in the cam_fusion line
         "cluster_size": fusion["cluster_size"],  # CTAs an image, one cluster each
+    }, {
+        "name": "cam_fusion_bf16",
+        "route": "cuda",
+        "source": "weaklysuperviseddl_tpu_torch/csrc/cam_fusion.cu",
+        "replaces": "weaklysuperviseddl_tpu/ops/pallas_cam.py:28",
+        # K5 on bfloat16 act and grad (the JAX kernel takes them upcast),
+        # launched by layercam(fusion="pallas") on the bfloat16 classifier
+        "launches": fusion_bf16["launches"],
+        "launches_by_path": {"bf16": fusion_bf16["launches"]},
+        "max_abs_err": fusion_bf16["max_abs_err"],  # against plain; bit-equal to the upcasts'
+        **timed_fields(fusion_bf16),
+        "library_ms": None,  # no single PyTorch call computes the fusion
+        "shape": fusion_bf16["shape"],  # layer4; layer3 in the bf16 line
+        "cluster_size": fusion_bf16["cluster_size"],
+        "float32_kernel_ms": fusion_bf16["float32_kernel_ms"],  # the same call on the upcasts
     }]}
     gemm = int8_sites["int8_gemm"]
     for name in ("quantize_gather", "dequant_epilogue"):

@@ -393,8 +393,9 @@ def test_basnet_pth_loads_in_both_packages(bridged, tmp_path):
     convs = [n for n, m in port.named_modules() if isinstance(m, torch.nn.Conv2d)]
     assert all(torch.equal(drawn.get_submodule(n).weight, port.get_submodule(n).weight)
                for n in convs)
-    with pytest.raises(NotImplementedError):
-        basnet_infer.build_basnet(device="cpu", dtype="bfloat16")
+    # bfloat16 is a compute dtype (tests/test_torch_dtype.py); float16 is not
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        basnet_infer.build_basnet(device="cpu", dtype="float16")
 
 
 def test_norm_pred_matches_jax():

@@ -450,6 +450,60 @@ def test_cam_fusion_kernel_equals_plain(cuda, shape):
     assert torch.equal(again, got)
 
 
+@pytest.mark.parametrize("shape", [(3, 160, 14, 14), (2, 130, 7, 9), (1, 512, 14, 14),
+                                   (32, 2048, 14, 14), (32, 1024, 14, 14)])
+def test_cam_fusion_bf16_equals_kernel_on_the_upcasts(cuda, shape):
+    """bfloat16 act and grad: bit-equal to the kernel on their float32
+    upcasts (the same sums in the same order; 7x9 takes the scalar loads),
+    within 1e-5 of plain, two launches identical, counted as bfloat16."""
+    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import (
+        cam_fusion,
+        cam_fusion_cuda,
+        cam_fusion_plain,
+    )
+
+    rng = np.random.default_rng(5)
+    act, grad = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+                 .to(torch.bfloat16) for _ in range(2))
+    before = dict(cam_fusion_cuda.launches_by_dtype)
+    got = cam_fusion_cuda(act, grad)
+    assert cam_fusion_cuda.launches_by_dtype["bfloat16"] == before["bfloat16"] + 1
+    upcast = cam_fusion_cuda(act.float(), grad.float())
+    again = cam_fusion(act, grad)
+    want = cam_fusion_plain(act, grad)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (shape[0], *shape[2:])
+    assert torch.equal(got, upcast) and torch.equal(again, got)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    with pytest.raises(TypeError, match="one dtype"):
+        cam_fusion_cuda(act, grad.float())
+
+
+def test_atrous_tap_plan_on_the_card(cuda):
+    """The ASPP's tap plan on the card against the dilated convolution
+    (float32, TF32 off) and the bfloat16 plan against the CPU's."""
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import AtrousConv
+    from weaklysuperviseddl_tpu_torch.models.resnet import init_weights, set_compute_dtype
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    conv = init_weights(AtrousConv(256, 64, 24), torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 256, 32, 32))
+                         .astype(np.float32))
+    with torch.no_grad():
+        cpu = conv(x)
+        card = conv.to(cuda)(x.to(cuda))
+        dilated = torch.nn.functional.conv2d(x.to(cuda), conv.weight, None, 1, 24, 24)
+        torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-5)
+        torch.testing.assert_close(card, dilated, rtol=0, atol=1e-5)
+        set_compute_dtype(conv, "bfloat16")
+        bf = conv(x.to(cuda))
+        assert bf.dtype == torch.bfloat16
+        # one bfloat16 rounding of float32 sums taken in another order
+        torch.testing.assert_close(bf.float().cpu(), conv.cpu()(x).float(), rtol=2**-7,
+                                   atol=1e-3)
+
+
 def test_cam_fusion_raises_when_clusters_cannot_launch(cuda, monkeypatch):
     """A cluster size the kernel does not take is an error, not a fallback to
     another plan; nothing is counted."""

@@ -25,7 +25,14 @@ Known differences neutralised here, as the stage tests do:
     trains with cross-entropy, and the smoke masks converge in K2's rounds.
 Both packages draw the same batch order from the same seed (the loaders'
 ``np.random.default_rng(seed)`` permutations), so no order is fed in.
+
+The same cycle runs again with ``classifier.dtype = seg.dtype =
+"bfloat16"`` in both packages (``cycles_bf16``): each package rounds its own
+way in bfloat16, so the store's masks and the masks after the sweep are held
+to 99 % of the pixels and the IoUs to 0.02.
 """
+
+import dataclasses
 
 import flax.linen
 import jax
@@ -96,10 +103,20 @@ def _spy(monkeypatch, module, name, record, key, keep, before=False):
     monkeypatch.setattr(module, name, wrapper)
 
 
-@pytest.fixture(scope="module")
-def cycles():
+def _with_dtype(cfg, dtype):
+    """``cfg`` with both models' compute dtype set to ``dtype``."""
+    return dataclasses.replace(cfg, classifier=dataclasses.replace(cfg.classifier, dtype=dtype),
+                               seg=dataclasses.replace(cfg.seg, dtype=dtype))
+
+
+def _run_cycles(dtype):
+    """Both packages' cycles on ``smoke_config()`` with both models in the
+    compute ``dtype``, from JAX's initial weights (float32 parameters in
+    either dtype): (JAX's result, the port's, the spies' record)."""
     assert smoke_config().alternating.num_alternations == 1
     assert smoke_config().alternating.refine_repeats == 1
+    jax_cfg = _with_dtype(jax_smoke_config(), dtype)
+    port_cfg = _with_dtype(smoke_config(), dtype)
     record = {}
     mp = pytest.MonkeyPatch()
     threads = torch.get_num_threads()
@@ -117,17 +134,27 @@ def cycles():
         _spy(mp, port_weakly, "run_alternating_training", record, "port_store",
              lambda args, out: args[1].as_arrays()[1].copy(), before=True)
 
-        classifier, seg = _jax_initial_weights(jax_smoke_config())
+        classifier, seg = _jax_initial_weights(jax_cfg)
         quiet = lambda *a, **k: None  # noqa: E731
-        jax_result = jax_run_alternating(jax_smoke_config(), log=quiet)
+        jax_result = jax_run_alternating(jax_cfg, log=quiet)
         port_result = port_weakly.run_weakly_supervised_alternating(
-            smoke_config(), log=quiet, device="cpu",
+            port_cfg, log=quiet, device="cpu",
             classifier_weights=cam_classifier_state_dict_from_jax(classifier),
             seg_weights=deeplab_state_dict_from_jax(seg))
     finally:
         mp.undo()
         torch.set_num_threads(threads)
     return jax_result, port_result, record
+
+
+@pytest.fixture(scope="module")
+def cycles():
+    return _run_cycles("float32")
+
+
+@pytest.fixture(scope="module")
+def cycles_bf16():
+    return _run_cycles("bfloat16")
 
 
 def test_fc_after_classifier_training(cycles):
@@ -169,3 +196,40 @@ def test_iou(cycles, key):
     got, want = port_result.metrics[key], jax_result.metrics[key]
     assert np.isfinite(got) and np.isfinite(want)
     assert abs(got - want) < 0.01, (got, want)
+
+
+# ---- the same cycle with classifier.dtype = seg.dtype = "bfloat16" --------------------
+# bfloat16 rounds each side independently, so the stages are held to the
+# composed cycle's looser gates: masks on at least 99 % of the pixels, IoU
+# within 0.02.
+
+
+def test_bf16_models_compute_in_bfloat16(cycles_bf16):
+    _, port_result, _ = cycles_bf16
+    assert port_result.classifier.compute_dtype == torch.bfloat16
+    assert port_result.seg_state.model.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in port_result.seg_state.model.parameters())
+
+
+def test_bf16_store_pseudo_masks(cycles_bf16):
+    _, _, record = cycles_bf16
+    got, want = record["port_store"], record["jax_store"]
+    assert got.shape == want.shape and 0.0 < want.mean() < 1.0
+    assert (got == want).mean() >= 0.99, (got == want).mean()
+
+
+def test_bf16_masks_after_the_sweep(cycles_bf16):
+    jax_result, port_result, _ = cycles_bf16
+    _, want, jax_keys = jax_result.mask_store.as_arrays()
+    _, got, port_keys = port_result.mask_store.as_arrays()
+    assert list(port_keys) == list(jax_keys) and got.shape == want.shape
+    assert (got == want).mean() >= 0.99, (got == want).mean()
+
+
+@pytest.mark.parametrize("key", ["iou", "alt_iou"])
+def test_bf16_iou(cycles_bf16, key):
+    jax_result, port_result, _ = cycles_bf16
+    got, want = port_result.metrics[key], jax_result.metrics[key]
+    print(f"bf16 cycle {key}: port {got:.6f}, JAX {want:.6f}")
+    assert np.isfinite(got) and np.isfinite(want)
+    assert abs(got - want) <= 0.02, (got, want)

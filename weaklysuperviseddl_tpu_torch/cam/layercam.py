@@ -14,6 +14,14 @@ resolves to XLA), then either
     ``clamp(0) ** alpha``;
 each layer's CAM is upsampled bilinearly (align_corners=False) to
 ``output_size`` before the mean over layers.
+
+In the classifier's compute dtype: the logits and the target activations
+are in it, and so are the gradients (the selected-class one-hot in the
+logits' dtype). The fusion widens them to float32 and everything after it
+runs in float32, so the CAM is float32 in either dtype. (JAX's target
+activations and gradients are float32 even in a bfloat16 model: its float32
+zero perturbations promote the stage outputs, whose values stay those of
+bfloat16; its fusion, XLA's or the Pallas kernel's, runs in float32.)
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ def layercam(model, images: torch.Tensor, class_idx: torch.Tensor | None,
              alpha_mode: str = "per_layer", output_size: int = 224, fusion: str = "auto"):
     """``model``: a ``CamClassifier``. images [B,H,W,3]; class_idx [B] or None
     (→ argmax of the logits). Returns (cam [B,S,S] float32 in [0,1], logits
-    [B,K]), both without gradient."""
+    [B,K] in the model's compute dtype), both without gradient."""
     if fusion not in ("auto", "xla", "pallas"):
         raise ValueError(f"unknown fusion {fusion!r}")
     if alpha_mode not in ("per_layer", "final"):

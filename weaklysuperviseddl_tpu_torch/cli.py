@@ -10,11 +10,18 @@ weaklysuperviseddl_tpu/cli.py):
         [--checkpoint PATH] [--no-int8 | --calib-dir DIR] [--calib-state PATH]
     python -m weaklysuperviseddl_tpu_torch client --url http://host:8765 --image photo.jpg
     python -m weaklysuperviseddl_tpu_torch basnet [--weights ./Weights/basnet.pth]
-        [--num-images 10] [--device cpu]
+        [--num-images 10] [--dtype bfloat16] [--device cpu]
 
 ``weakly``, ``supervised``, ``ablations``, ``serve`` and ``basnet`` run on the
-card unless ``--device cpu`` is given, in float32 with TF32 off for cuDNN
-convolutions and matmuls. The training commands take dotted overrides onto
+card unless ``--device cpu`` is given, with TF32 off for cuDNN convolutions
+and matmuls, so float32 stays exact float32. ``weakly`` computes its models
+in the config's compute dtypes, float32 by default: ``--classifier.dtype
+bfloat16 --seg.dtype bfloat16`` runs the classifier and DeepLabV3 in
+bfloat16 (float32 parameters, statistics and optimizer state; products
+accumulate in float32; DeepLabV3's logits, the losses, the refinement and the
+CRF stay float32), and ``basnet --dtype bfloat16`` runs BASNet so.
+``supervised``, ``ablations`` and ``serve`` compute in float32 (int8 for
+``serve``), as the JAX package's do. The training commands take dotted overrides onto
 ``config.ExperimentConfig`` (any depth: ``--alternating.refine.num_steps
 10``) and print their result as one JSON line. ``weakly --checkpoint-dir``
 snapshots every alternation; ``--resume`` continues from the latest snapshot
@@ -62,7 +69,8 @@ def _config(args, parser, extra):
 
 
 def _device(args):
-    """The run's device, with TF32 off: the port computes in float32."""
+    """The run's device, with TF32 off: float32 computes in float32 and
+    bfloat16 accumulates in float32."""
     import torch
 
     from weaklysuperviseddl_tpu_torch.device import resolve_device
@@ -287,7 +295,7 @@ def _basnet(args) -> int:
         output_folder = None
     dataset = download_data(None, split="test", synthetic_size=args.num_images)
     run_inference(dataset, weights_path=args.weights, num_images=args.num_images,
-                  output_folder=output_folder, device=device)
+                  output_folder=output_folder, device=device, dtype=args.dtype)
     return 0
 
 
@@ -366,6 +374,8 @@ def main(argv=None) -> int:
                              "file does not exist)")
     parser.add_argument("--num-images", type=int, default=10,
                         help="basnet: test images to evaluate")
+    parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
+                        help="basnet: the model's compute dtype (parameters stay float32)")
     parser.add_argument("--url", default="http://127.0.0.1:8765",
                         help="client: base URL of a running MaskServer")
     parser.add_argument("--image", default=None,

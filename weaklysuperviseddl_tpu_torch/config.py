@@ -4,13 +4,28 @@ The same dataclasses with the same field names and defaults as the JAX
 package, so a config recorded by either package loads in the other.
 ``MeshConfig`` is kept for that reason; the port runs on one device and
 refuses any other layout (``pipelines/weakly.py``). ``RefineConfig.use_pallas``
-keeps its name: in the port it selects the CUDA kernel.
+keeps its name: in the port it selects the CUDA kernel. ``classifier.dtype``
+and ``seg.dtype`` are the models' compute dtypes, "float32" or "bfloat16"
+(any other raises here).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
+
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def check_compute_dtype(field: str, value) -> str:
+    """``value`` if it names a compute dtype the port runs, else raise: the
+    JAX package takes any ``jnp.dtype``; float16 and the rest are still to
+    port (ROADMAP.md queue 1)."""
+    if value not in COMPUTE_DTYPES:
+        raise ValueError(f"{field}={value!r} is not ported: the port computes in "
+                         f"{' or '.join(COMPUTE_DTYPES)}; the other dtypes are still to port "
+                         "(ROADMAP.md queue 1)")
+    return value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +58,9 @@ class ClassifierConfig:
     dtype: str = "float32"
     depth: int = 50
     width_multiplier: float = 1.0
+
+    def __post_init__(self):
+        check_compute_dtype("classifier.dtype", self.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +112,9 @@ class SegConfig:
     width_multiplier: float = 1.0
     output_stride: int = 8
     bn_frozen: bool = False
+
+    def __post_init__(self):
+        check_compute_dtype("seg.dtype", self.dtype)
 
 
 @dataclasses.dataclass(frozen=True)

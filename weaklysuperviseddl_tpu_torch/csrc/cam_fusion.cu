@@ -4,7 +4,8 @@
 //     out[b,p] = (cam[b,p] - lo_b) / (hi_b - lo_b + 1e-8)
 //
 // with lo_b, hi_b the min and max of cam over image b's pixels p; act and grad
-// are [B,C,h,w] float32 (the port's NCHW activations), out is [B,h,w].
+// are [B,C,h,w] float32 or bfloat16, both of one type (the port's NCHW
+// activations and their gradients), out is [B,h,w] float32.
 //
 // Replaces the TPU kernel ops/pallas_cam.py::_cam_kernel of the JAX package
 // (fused_cam_fusion), which takes NHWC tiles with the channels on the lanes.
@@ -25,10 +26,19 @@
 // and each pixel is written once. Every sum runs in a fixed order: two
 // launches give the same bits.
 //
+// bfloat16 inputs. Each element is widened to float32 in registers, which is
+// exact, and goes through the same float32 arithmetic in the same order: the
+// vector width (4 elements, 8-byte loads), the split into CTAs, pixel lanes
+// and channel groups, and so every sum, are those of a float32 call at the
+// same shape, so the output is bit-equal to the kernel on the float32
+// upcasts (the JAX kernel upcasts before its call). Only the bytes read
+// halve.
+//
 // Bound. Bytes: act and grad read once and the CAM written once,
 // (2*C + 1)*h*w*4 bytes per image: 51 MB at [32,1024,14,14] (layer3 of the
 // full-width classifier, 15.3 us at 3.35 TB/s) and 103 MB at [32,2048,14,14]
 // (layer4, 30.7 us); 3 operations an element are far below the card's rate.
+// In bfloat16, (4*C + 4)*h*w bytes: 7.7 us at layer3 and 15.4 us at layer4.
 // What the design does about it: one block an image left 100 of the 132 SMs
 // idle at batch 32, each busy SM streaming 3.2 MB alone; S CTAs an image put
 // B*S SMs on the stream, with 16-byte loads and 2*UNROLL of them a thread in
@@ -39,6 +49,7 @@
 // error code (0 on success) or a count.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -74,6 +85,34 @@ struct Vec<4> {
   __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
 };
 
+// V consecutive input elements, the i-th group of V, widened to float32.
+template <int V, typename In>
+struct Load;
+template <>
+struct Load<1, float> {
+  __device__ static float at(const float* p, size_t i) { return p[i]; }
+};
+template <>
+struct Load<1, __nv_bfloat16> {
+  __device__ static float at(const __nv_bfloat16* p, size_t i) { return __bfloat162float(p[i]); }
+};
+template <>
+struct Load<4, float> {
+  __device__ static float4 at(const float* p, size_t i) {
+    return reinterpret_cast<const float4*>(p)[i];
+  }
+};
+template <>
+struct Load<4, __nv_bfloat16> {
+  // one 8-byte load; element k is bits [16k, 16k + 16) of the pair, little
+  // endian, and a bfloat16 is the high half of the float32 it widens to
+  __device__ static float4 at(const __nv_bfloat16* p, size_t i) {
+    const uint2 r = reinterpret_cast<const uint2*>(p)[i];
+    return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
+                       __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
+  }
+};
+
 __device__ __forceinline__ void warp_min_max(float& lo, float& hi) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -83,12 +122,15 @@ __device__ __forceinline__ void warp_min_max(float& lo, float& hi) {
 }
 
 // grid (B * S), clusters of S, block THREADS: thread t < PT * G owns the pixel
-// vectors v = t % PT (mod PT) of channel group t / PT. V floats a vector.
-template <int V>
+// vectors v = t % PT (mod PT) of channel group t / PT. V elements of type In
+// a vector.
+template <typename In, int V>
 __global__ void __launch_bounds__(THREADS)
-cam_fusion(const float* __restrict__ act, const float* __restrict__ grad,
+cam_fusion(const void* __restrict__ act_in, const void* __restrict__ grad_in,
            float* __restrict__ out, int C, int HW, int S, int CS, int PT, int G) {
   using T = typename Vec<V>::T;
+  const In* __restrict__ act = static_cast<const In*>(act_in);
+  const In* __restrict__ grad = static_cast<const In*>(grad_in);
   extern __shared__ __align__(16) float part[];  // [G][HW]: each group's sums; then the CTA's
   __shared__ float wlo[THREADS / 32], whi[THREADS / 32];
   __shared__ float cta_lo, cta_hi, img_lo, img_hi;
@@ -108,8 +150,6 @@ cam_fusion(const float* __restrict__ act, const float* __restrict__ grad,
   if (t < PT * G) {
     const int g = t / PT, c1 = min(C, (rank + 1) * CS);
     const size_t image = static_cast<size_t>(b) * C * NV;
-    const T* a = reinterpret_cast<const T*>(act) + image;
-    const T* gr = reinterpret_cast<const T*>(grad) + image;
     for (int v = t % PT; v < NV; v += PT) {
       // UNROLL channels' loads issued at once, those past the slice as
       // zeros: adding relu(0 * 0) to a sum of non-negative terms leaves its
@@ -119,10 +159,10 @@ cam_fusion(const float* __restrict__ act, const float* __restrict__ grad,
         T av[UNROLL], gv[UNROLL];
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
-          const size_t i = static_cast<size_t>(c + u * G) * NV + v;
+          const size_t i = image + static_cast<size_t>(c + u * G) * NV + v;
           const bool in = c + u * G < c1;
-          av[u] = in ? a[i] : Vec<V>::zero();
-          gv[u] = in ? gr[i] : Vec<V>::zero();
+          av[u] = in ? Load<V, In>::at(act, i) : Vec<V>::zero();
+          gv[u] = in ? Load<V, In>::at(grad, i) : Vec<V>::zero();
         }
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) s = fuse(s, av[u], gv[u]);
@@ -185,17 +225,19 @@ cam_fusion(const float* __restrict__ act, const float* __restrict__ grad,
 // The launch of one call: the kernel for its vector width, the split of the
 // block into pixel lanes and channel groups, and the cluster configuration.
 struct Plan {
-  void (*kernel)(const float*, const float*, float*, int, int, int, int, int, int);
+  void (*kernel)(const void*, const void*, float*, int, int, int, int, int, int);
   int vec, CS, PT, G;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t config;
 };
 
-// vec: float4 loads (h*w % 4 == 0 and 16-byte aligned pointers).
-void make_plan(Plan& pl, bool vec, int B, int C, int HW, int S, void* stream) {
+// vec: 4-element loads (h*w % 4 == 0 and pointers aligned to 4 elements);
+// bf16: bfloat16 inputs. The split does not depend on the input type.
+void make_plan(Plan& pl, bool vec, bool bf16, int B, int C, int HW, int S, void* stream) {
   pl = Plan{};
   pl.vec = vec ? 4 : 1;
-  pl.kernel = vec ? cam_fusion<4> : cam_fusion<1>;
+  pl.kernel = bf16 ? (vec ? cam_fusion<__nv_bfloat16, 4> : cam_fusion<__nv_bfloat16, 1>)
+                   : (vec ? cam_fusion<float, 4> : cam_fusion<float, 1>);
   pl.CS = (C + S - 1) / S;
   pl.PT = std::min(THREADS, HW / pl.vec);
   const int fit = MAX_SMEM / static_cast<int>(sizeof(float) * HW);
@@ -227,41 +269,44 @@ bool valid(int B, int C, int HW, int S) {
          S >= 1 && S <= MAX_CLUSTER && static_cast<long long>(B) * S <= 0x7fffffff;
 }
 
-// For each device, vector width and cluster size, the largest dynamic shared
-// memory of a plan found launchable: the occupancy query runs once a shape.
+// For each device, input type, vector width and cluster size, the largest
+// dynamic shared memory of a plan found launchable: the occupancy query runs
+// once a shape.
 constexpr int MAX_DEVICES = 16;  // devices past these are queried on every call
-std::atomic<size_t> checked[MAX_DEVICES][2][MAX_CLUSTER + 1];
+std::atomic<size_t> checked[MAX_DEVICES][2][2][MAX_CLUSTER + 1];
 
 }  // namespace
 
 // The clusters of S CTAs that the card holds at once for a call at (C, HW),
-// with float4 loads when vec != 0: a count >= 0, or minus the CUDA error of
-// the query.
-extern "C" int wsdl_cam_fusion_max_clusters(int C, int HW, int S, int vec) {
+// with 4-element loads when vec != 0, on bfloat16 inputs when bf16 != 0: a
+// count >= 0, or minus the CUDA error of the query.
+extern "C" int wsdl_cam_fusion_max_clusters(int C, int HW, int S, int vec, int bf16) {
   if (!valid(1, C, HW, S) || (vec && HW % 4)) return -static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
-  make_plan(pl, vec != 0, 1, C, HW, S, nullptr);
+  make_plan(pl, vec != 0, bf16 != 0, 1, C, HW, S, nullptr);
   int n = 0;
   const cudaError_t err = max_active_clusters(pl, &n);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
-// act, grad [B,C,h,w] and out [B,h,w]: contiguous float32 on the device, with
-// HW = h*w; S: the CTAs of an image's cluster, 1..8; stream: the cudaStream_t
-// to launch on. Requires B >= 1, C >= 1 and HW*4 bytes within the card's
+// act, grad [B,C,h,w]: contiguous float32 (bf16 == 0) or bfloat16 (bf16 != 0)
+// on the device; out [B,h,w]: contiguous float32; HW = h*w; S: the CTAs of an
+// image's cluster, 1..8; stream: the cudaStream_t to launch on. Requires B >= 1, C >= 1 and HW*4 bytes within the card's
 // 227 KB of shared memory (the wrapper checks HW <= 50000). Returns
 // cudaErrorInvalidConfiguration if the card cannot hold one such cluster.
 extern "C" int wsdl_cam_fusion(const void* act, const void* grad, void* out, int B, int C,
-                               int HW, int S, void* stream) {
+                               int HW, int S, int bf16, void* stream) {
   if (!valid(B, C, HW, S)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = HW % 4 == 0 && reinterpret_cast<std::uintptr_t>(act) % 16 == 0 &&
-                   reinterpret_cast<std::uintptr_t>(grad) % 16 == 0;
+  const std::uintptr_t align = bf16 ? 8 : 16;  // 4 elements
+  const bool vec = HW % 4 == 0 && reinterpret_cast<std::uintptr_t>(act) % align == 0 &&
+                   reinterpret_cast<std::uintptr_t>(grad) % align == 0;
   Plan pl;
-  make_plan(pl, vec, B, C, HW, S, stream);
+  make_plan(pl, vec, bf16 != 0, B, C, HW, S, stream);
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  std::atomic<size_t>* ok = device < MAX_DEVICES ? &checked[device][vec][S] : nullptr;
+  std::atomic<size_t>* ok =
+      device < MAX_DEVICES ? &checked[device][bf16 != 0][vec][S] : nullptr;
   if (ok == nullptr || pl.config.dynamicSmemBytes > ok->load(std::memory_order_relaxed)) {
     int n = 0;
     err = max_active_clusters(pl, &n);
@@ -269,9 +314,8 @@ extern "C" int wsdl_cam_fusion(const void* act, const void* grad, void* out, int
     if (n < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     if (ok != nullptr) ok->store(pl.config.dynamicSmemBytes, std::memory_order_relaxed);
   }
-  err = cudaLaunchKernelEx(&pl.config, pl.kernel, static_cast<const float*>(act),
-                           static_cast<const float*>(grad), static_cast<float*>(out), C, HW, S,
-                           pl.CS, pl.PT, pl.G);
+  err = cudaLaunchKernelEx(&pl.config, pl.kernel, act, grad, static_cast<float*>(out), C, HW,
+                           S, pl.CS, pl.PT, pl.G);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,9 @@ zero the CAM below the threshold, refine it with the dense CRF
 batches repeat the last index, as the JAX index tables do, and their extra
 rows are dropped.
 
+In a bfloat16 classifier the stored images stay uint8 and the CAMs float32
+(``cam/layercam.py``), so the masks are derived as in float32.
+
 Not ported yet: the host-spilling extraction (``spill_to_host=True``), which
 raises.
 """

@@ -15,7 +15,10 @@ Module names are the reference's state-dict keys (``inconv``, ``inbn``,
 ``load_state_dict(strict=True)`` and the JAX package's torch importer reads
 the port's ``state_dict()`` unchanged. BASNet's own convs carry biases; the
 ResNet blocks' do not. BatchNorm is ``models/resnet.BatchNorm2d`` (flax's
-running-statistics rule, as the JAX model's ``momentum=0.9``).
+running-statistics rule, as the JAX model's ``momentum=0.9``). ``dtype`` is
+the compute dtype (``models/resnet.set_compute_dtype``) of every conv and
+BatchNorm, the RefUnet and the side outputs; the eight maps come back in it,
+their sigmoids taken in it, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -23,13 +26,19 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from weaklysuperviseddl_tpu_torch.models.resnet import BasicBlock, BatchNorm2d, _conv
+from weaklysuperviseddl_tpu_torch.models.resnet import (
+    BasicBlock,
+    BatchNorm2d,
+    Conv2d,
+    _conv,
+    set_compute_dtype,
+)
 from weaklysuperviseddl_tpu_torch.ops.resize import resize_bilinear
 
 
-def _conv_b(cin: int, cout: int, kernel: int = 3, dilation: int = 1) -> nn.Conv2d:
+def _conv_b(cin: int, cout: int, kernel: int = 3, dilation: int = 1) -> Conv2d:
     """A conv with bias and symmetric padding that keeps the spatial size."""
-    return nn.Conv2d(cin, cout, kernel, padding=(kernel // 2) * dilation, dilation=dilation)
+    return Conv2d(cin, cout, kernel, padding=(kernel // 2) * dilation, dilation=dilation)
 
 
 def _pool2(x: torch.Tensor) -> torch.Tensor:
@@ -96,7 +105,7 @@ def _stage(inplanes: int, planes: int, num_blocks: int, stride: int) -> nn.Seque
 
 
 class BASNet(nn.Module):
-    def __init__(self, n_channels: int = 3, n_classes: int = 1):
+    def __init__(self, n_channels: int = 3, n_classes: int = 1, dtype="float32"):
         super().__init__()
         self.inconv = _conv_b(n_channels, 64)
         self.inbn = BatchNorm2d(64)
@@ -118,6 +127,7 @@ class BASNet(nn.Module):
         for i, cin in ((6, 512), (5, 512), (4, 256), (3, 128), (2, 64), (1, 64)):
             setattr(self, f"outconv{i}", _conv_b(cin, n_classes))
         self.refunet = RefUnet(n_classes, 64)
+        set_compute_dtype(self, dtype)
 
     def _cbr(self, conv: str, bn: str, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(getattr(self, bn)(getattr(self, conv)(x)))

@@ -10,11 +10,21 @@ torchvision's ``deeplabv3_resnet50`` layout and state-dict keys:
     ``num_classes`` (with bias)
   * bilinear upsample of the logits to the input size (align_corners=False)
 
-The JAX ``_AtrousTapConv`` is a TPU layout of the same zero-padded dilated
-convolution; here its float forward is ``Conv2d(padding=rate, dilation=rate)``
-(``AtrousConv``). Its plan matters to int8 serving, where each of JAX's taps
-is a quantized site of its own with its own scales: ``AtrousConv.taps`` gives
-the taps JAX runs at an input size (``ops/quant.py`` walks them).
+An ASPP branch's 3x3 atrous convolution (``AtrousConv``) runs the JAX
+``_AtrousTapConv`` plan: where ``4·rate ≥ min(H, W)`` (every rate at the
+served 32² layer4 map) it is one 1x1 product per in-bounds tap over the
+output region that tap reaches, summed in a float32 buffer and rounded once
+to the compute dtype; below that, the dilated convolution. The taps skip the
+products with the zero padding that a dilated convolution of rate 36 on a
+32² map spends 8/9 of its work on. The plan also fixes int8 serving, where
+each of JAX's taps is a quantized site of its own with its own scales:
+``AtrousConv.taps`` gives the taps at an input size (``ops/quant.py`` walks
+them).
+
+``dtype`` is the compute dtype (``models/resnet.set_compute_dtype``) of the
+backbone, the ASPP (its pooled branch too), the head and the classifier
+conv; the logits are cast to float32 before the bilinear resize, so every
+loss, softmax and evaluation downstream runs in float32, as in JAX.
 
 The ASPP's dropout (``Dropout``) draws its mask from a generator of its own on
 the input's device, never from torch's global random state: the training loop
@@ -34,7 +44,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from weaklysuperviseddl_tpu_torch.models.resnet import BatchNorm2d, ResNetBackbone
+from weaklysuperviseddl_tpu_torch.models.resnet import (
+    BatchNorm2d,
+    Conv2d,
+    ResNetBackbone,
+    set_compute_dtype,
+)
 
 
 class Dropout(nn.Module):
@@ -110,9 +125,10 @@ def atrous_taps(rate: int, H: int, W: int) -> list[Tap] | None:
     return taps
 
 
-class AtrousConv(nn.Conv2d):
-    """An ASPP branch's 3x3 atrous convolution (no bias): ``nn.Conv2d``'s
-    forward and state-dict keys, unchanged; ``taps`` is its JAX plan."""
+class AtrousConv(Conv2d):
+    """An ASPP branch's 3x3 atrous convolution (no bias), ``Conv2d``'s
+    state-dict keys: JAX's tap plan ``taps(H, W)`` where it has one, else
+    the dilated convolution."""
 
     def __init__(self, cin: int, cout: int, rate: int):
         super().__init__(cin, cout, 3, padding=rate, dilation=rate, bias=False)
@@ -121,9 +137,27 @@ class AtrousConv(nn.Conv2d):
     def taps(self, H: int, W: int) -> list[Tap] | None:
         return atrous_taps(self.rate, H, W)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        taps = self.taps(*x.shape[-2:])
+        if taps is None:
+            return super().forward(x)
+        # each tap's product from compute-dtype operands, exact in float32
+        # (a product of two bfloat16 values fits its mantissa), accumulated
+        # in float32 as JAX's preferred_element_type=float32, and the sum
+        # rounded once
+        dt = self.compute_dtype or self.weight.dtype
+        acc = torch.promote_types(dt, torch.float32)
+        xs = x.to(dt).to(acc).permute(0, 2, 3, 1)                    # [B,H,W,C]
+        w = self.weight.to(dt).to(acc)                               # [F,C,3,3]
+        out = xs.new_zeros(*xs.shape[:3], self.out_channels)
+        for t in taps:
+            src = xs[:, t.oy0 + t.dy:t.oy1 + t.dy, t.ox0 + t.dx:t.ox1 + t.dx]
+            out[:, t.oy0:t.oy1, t.ox0:t.ox1] += src @ w[:, :, t.iy, t.ix].t()
+        return out.permute(0, 3, 1, 2).to(dt)
+
 
 def _conv_bn_relu(cin, cout, kernel=1, rate=None):
-    conv = (nn.Conv2d(cin, cout, kernel, padding=kernel // 2, bias=False) if rate is None
+    conv = (Conv2d(cin, cout, kernel, padding=kernel // 2, bias=False) if rate is None
             else AtrousConv(cin, cout, rate))
     return [conv, BatchNorm2d(cout), nn.ReLU()]
 
@@ -146,11 +180,11 @@ class ASPP(nn.Module):
 
 
 class DeepLabV3(nn.Module):
-    """``forward``: [B,3,H,W] normalised float → [B,num_classes,H,W] logits.
-    ``logits_nhwc`` is the same function in the JAX layout."""
+    """``forward``: [B,3,H,W] normalised float → [B,num_classes,H,W] float32
+    logits. ``logits_nhwc`` is the same function in the JAX layout."""
 
     def __init__(self, num_classes: int = 2, backbone_depth: int = 50,
-                 width_multiplier: float = 1.0, bn_frozen: bool = False):
+                 width_multiplier: float = 1.0, bn_frozen: bool = False, dtype="float32"):
         super().__init__()
         self.num_classes = num_classes
         self.backbone = ResNetBackbone(backbone_depth, width_multiplier,
@@ -159,11 +193,12 @@ class DeepLabV3(nn.Module):
         self.classifier = nn.Sequential(
             ASPP(self.backbone.feature_channels["layer4"], head_ch),
             *_conv_bn_relu(head_ch, head_ch, 3),
-            nn.Conv2d(head_ch, num_classes, 1),
+            Conv2d(head_ch, num_classes, 1),
         )
         for m in self.modules():
             if isinstance(m, BatchNorm2d):
                 m.frozen = bn_frozen
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.classifier(self.backbone(x)["layer4"])

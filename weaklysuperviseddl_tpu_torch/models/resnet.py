@@ -15,6 +15,15 @@ The JAX stem plans ``s2d`` and ``pack8`` are TPU layouts of the same 7x7/2
 convolution; here the stem is that convolution (``StemConv``), which also
 names the kernel shape JAX's default ``s2d`` plan convolves with, the stem's
 fingerprint in an int8 calibration file (``ops/quant.py``).
+
+The compute dtype is flax's ``dtype=`` (float32 or bfloat16): parameters,
+BatchNorm statistics and the optimizer's state stay float32, while every
+``Conv2d`` and ``Linear`` casts its input, kernel and bias to the compute
+dtype and returns it (the product accumulates in float32), and every
+``BatchNorm2d`` normalises in float32 and returns the compute dtype, so the
+residual adds, ReLUs and pooling run in it. ``set_compute_dtype`` sets it on
+a built model. float32 casts nothing: the layers are then torch's own and
+compute in their parameters' type (float64 after ``model.double()``).
 """
 
 from __future__ import annotations
@@ -25,8 +34,61 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from weaklysuperviseddl_tpu_torch.config import check_compute_dtype
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}
 BOTTLENECK_DEPTHS = (50,)
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a compute-dtype name ("float32", "bfloat16") or of
+    a torch dtype; any other raises (``config.check_compute_dtype``)."""
+    return COMPUTE_DTYPES[check_compute_dtype("dtype", str(dtype).removeprefix("torch."))]
+
+
+def set_compute_dtype(model: nn.Module, dtype) -> nn.Module:
+    """Set the compute dtype of every ``Conv2d``, ``Linear`` and
+    ``BatchNorm2d`` of ``model`` (float32: none, so they compute in their
+    parameters' type), and the ``compute_dtype`` that ``model`` and the
+    models inside it report; the parameters are untouched. Returns the
+    model."""
+    dt = compute_dtype(dtype)
+    model.compute_dtype = dt
+    for m in model.modules():
+        if isinstance(m, (Conv2d, Linear, BatchNorm2d)):
+            m.compute_dtype = None if dt is torch.float32 else dt
+        elif hasattr(m, "compute_dtype"):
+            m.compute_dtype = dt
+    return model
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same state-dict keys) in ``compute_dtype``: input,
+    kernel and bias are cast to it, as flax's ``nn.Conv(dtype=...)`` does
+    with its float32 parameters; None is ``nn.Conv2d``'s forward."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` (same state-dict keys) in ``compute_dtype``, as flax's
+    ``nn.Dense(dtype=...)``; None is ``nn.Linear``'s forward."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -38,14 +100,19 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     ``frozen`` (set by ``DeepLabV3(bn_frozen=True)``): the layer normalises
     with its running statistics and leaves them untouched even in training
-    mode; gradients still reach its affine weight and bias."""
+    mode; gradients still reach its affine weight and bias.
+
+    The statistics and the normalisation are float32 whatever the input's
+    dtype; the output is ``compute_dtype`` where one is set (flax's
+    ``nn.BatchNorm(dtype=...)``), else the input's."""
 
     frozen = False
+    compute_dtype: torch.dtype | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.frozen:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                                False, 0.0, self.eps)
+            return self._out(F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                          self.bias, False, 0.0, self.eps))
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             dims = [0] + list(range(2, x.ndim))
@@ -55,12 +122,15 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
             self.num_batches_tracked.add_(1)
-        return y
+        return self._out(y)
+
+    def _out(self, y: torch.Tensor) -> torch.Tensor:
+        return y if self.compute_dtype is None else y.to(self.compute_dtype)
 
 
-class StemConv(nn.Conv2d):
-    """The 7x7/2 stem convolution (padding 3, no bias): ``nn.Conv2d``'s
-    forward and state-dict keys, unchanged."""
+class StemConv(Conv2d):
+    """The 7x7/2 stem convolution (padding 3, no bias): ``Conv2d``'s forward
+    and state-dict keys, unchanged."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, 7, stride=2, padding=3, bias=False)
@@ -76,8 +146,8 @@ class StemConv(nn.Conv2d):
 
 
 def _conv(cin, cout, kernel, stride=1, dilation=1):
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=(kernel // 2) * dilation,
-                     dilation=dilation, bias=False)
+    return Conv2d(cin, cout, kernel, stride=stride, padding=(kernel // 2) * dilation,
+                  dilation=dilation, bias=False)
 
 
 class BasicBlock(nn.Module):
@@ -149,10 +219,12 @@ class ResNetBackbone(nn.Module):
     """Stem + 4 stages; ``forward`` returns the feature pyramid as a dict
     (``stem``, ``layer1`` … ``layer4``). ``replace_stride_with_dilation``
     applies to (layer2, layer3, layer4) as in torchvision; ``width_multiplier``
-    shrinks channel counts (``max(8, int(c * wm))``) for small test models."""
+    shrinks channel counts (``max(8, int(c * wm))``) for small test models;
+    ``dtype`` is the compute dtype (``set_compute_dtype``)."""
 
     def __init__(self, depth: int = 50, width_multiplier: float = 1.0,
-                 replace_stride_with_dilation: Sequence[bool] = (False, False, True)):
+                 replace_stride_with_dilation: Sequence[bool] = (False, False, True),
+                 dtype="float32"):
         super().__init__()
         self.depth = depth
         self.width_multiplier = width_multiplier
@@ -178,6 +250,7 @@ class ResNetBackbone(nn.Module):
             blocks += [block(out_ch, planes, 1, dilation) for _ in range(1, num_blocks)]
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
             inplanes = out_ch
+        set_compute_dtype(self, dtype)
 
     def _width(self, c: int) -> int:
         return max(8, int(c * self.width_multiplier))

@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from weaklysuperviseddl_tpu_torch.ops.build import build
+from weaklysuperviseddl_tpu_torch.ops.build import build, stream_handle
 
 SOURCE = "bilateral.cu"
 MAX_FEATURES = 128        # the kernel's shared-memory tiles hold d ≤ 128
@@ -131,7 +131,7 @@ def gaussian_filter_cuda(feats_q, feats_k, values):
     # the packed keys of the CRF variant (none for other d or C)
     scratch = torch.empty((lib.wsdl_bilateral_scratch_bytes(B, Nk, d, C),), dtype=torch.uint8,
                           device=fq.device)
-    stream = torch.cuda.current_stream(fq.device).cuda_stream
+    stream = stream_handle(fq.device)
     with torch.cuda.device(fq.device):
         err = lib.wsdl_bilateral(fq.data_ptr(), fk.data_ptr(), v.data_ptr(), out.data_ptr(),
                                  scratch.data_ptr() if scratch.numel() else None,

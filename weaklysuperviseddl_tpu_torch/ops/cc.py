@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from weaklysuperviseddl_tpu_torch.ops.build import build, launch_device
+from weaklysuperviseddl_tpu_torch.ops.build import build, launch_device, stream_handle
 
 SOURCE = "cc.cu"
 PLANS = ("image", "tiles")          # csrc/cc.cu's PLAN_IMAGE and PLAN_TILES
@@ -76,7 +76,7 @@ def label_components_cuda(masks: torch.Tensor) -> torch.Tensor:
         return labels
     plan = plan_for(H, W)
     lib = _load()
-    stream = torch.cuda.current_stream(masks.device).cuda_stream
+    stream = stream_handle(masks.device)
     with launch_device(masks.device):
         err = lib.wsdl_cc_label(masks.data_ptr(), labels.data_ptr(), B, H, W, PLANS.index(plan),
                                 stream)

@@ -46,7 +46,7 @@ from weaklysuperviseddl_tpu_torch.losses.window import (
     local_normalized_cut_per_image,
     window_offsets,
 )
-from weaklysuperviseddl_tpu_torch.ops.build import build
+from weaklysuperviseddl_tpu_torch.ops.build import build, stream_handle
 from weaklysuperviseddl_tpu_torch.ops.window import spatial_table
 
 SOURCE = "refine.cu"
@@ -213,7 +213,7 @@ def refine_cuda(S, images, masks, lambda_boundary=0.1, threshold=0.5, lr=1e-2,
     aff = torch.empty((lib.wsdl_refine_aff_floats(B, H, W, window_size, _PLAN_CODES[plan]),),
                       dtype=torch.float32, device=dev)
     spatial = spatial_table(window_size, sspace)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = stream_handle(dev)
     with torch.cuda.device(dev):
         err = lib.wsdl_refine(
             S.data_ptr(), images.data_ptr(), masks32.data_ptr(), out.data_ptr(),

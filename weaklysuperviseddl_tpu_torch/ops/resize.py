@@ -36,7 +36,8 @@ def _spatial_axes(x: torch.Tensor, axes=None):
 
 def _as_nchw(x: torch.Tensor, axes):
     """Move the spatial axes last and fold the rest into channels: returns the
-    [1, N, H, W] float32 view and a function that undoes the move."""
+    [1, N, H, W] view in float32, or float64 for a float64 input, and a
+    function that undoes the move."""
     h_ax, w_ax = _spatial_axes(x, axes)
     h_ax, w_ax = h_ax % x.ndim, w_ax % x.ndim
     perm = [d for d in range(x.ndim) if d not in (h_ax, w_ax)] + [h_ax, w_ax]
@@ -47,7 +48,8 @@ def _as_nchw(x: torch.Tensor, axes):
     def back(z: torch.Tensor) -> torch.Tensor:
         return z.reshape(*lead, *z.shape[-2:]).permute(inv)
 
-    return y.reshape(1, -1, *y.shape[-2:]).float(), back
+    y = y.reshape(1, -1, *y.shape[-2:])
+    return y.to(torch.promote_types(y.dtype, torch.float32)), back
 
 
 def _restore_dtype(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -90,8 +92,8 @@ def resize_bicubic(x: torch.Tensor, size: tuple[int, int], antialias: bool = Tru
         y = F.interpolate(y, size=(out_h, out_w), mode="bicubic", align_corners=False,
                           antialias=True)
     else:
-        wh = _cubic_weights(in_h, out_h).to(y.device)
-        ww = _cubic_weights(in_w, out_w).to(y.device)
+        wh = _cubic_weights(in_h, out_h).to(y.device, y.dtype)
+        ww = _cubic_weights(in_w, out_w).to(y.device, y.dtype)
         y = torch.einsum("oh,nchw,pw->ncop", wh, y, ww)
     return _restore_dtype(back(y), x)
 

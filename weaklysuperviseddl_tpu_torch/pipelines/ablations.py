@@ -16,7 +16,9 @@ set is uploaded once and evaluated by ``evaluate_segmentation_dataset``.
 ``run_key(base_seed, run_id)`` seeds each run's DeepLabV3 and its training
 (dropout and batch order): a pure function of both arguments in any
 process. The JAX package seeds the initial weights from its key and trains
-every run with the default seed 0.
+every run with the default seed 0. Each run's DeepLabV3 computes in float32
+whatever ``seg.dtype`` says, as the JAX package's grid does; the classifier
+is the caller's, in its own compute dtype.
 """
 
 from __future__ import annotations

@@ -7,7 +7,10 @@ to 256² and ImageNet-normalise → forward → ``dout`` channel 0 → min-max
 IoU and accuracy of the map > 0.5 against trimap == 1, and their means over
 the first 10 test images. Here a batch runs as one forward. Weights come from
 the reference's ``basnet.pth`` when the file exists, else from a seeded
-random init (no download).
+random init (no download). ``build_basnet(dtype="bfloat16")`` computes in
+bfloat16 with float32 parameters, as JAX's ``build_basnet(dtype=...)``; the
+maps are cast to float32 before ``norm_pred``, so ``saliency_step`` and
+``run_inference`` return float32 maps in either dtype.
 """
 
 from __future__ import annotations
@@ -32,11 +35,10 @@ def build_basnet(weights_path: str | None = None, device=None,
     """BASNet(3, 1) on ``device`` in eval mode: the state dict in
     ``weights_path`` when that file exists (the reference's ``basnet.pth``,
     read with ``weights_only=True``), else random weights drawn from
-    ``generator`` (``init_weights``; seed 0 when None)."""
-    if dtype != "float32":
-        raise NotImplementedError("the port computes in float32 only so far")
+    ``generator`` (``init_weights``; seed 0 when None). ``dtype``: the
+    compute dtype, "float32" or "bfloat16"."""
+    model = BASNet(n_channels=3, n_classes=1, dtype=dtype)
     dev = resolve_device(device)
-    model = BASNet(n_channels=3, n_classes=1)
     if weights_path and os.path.exists(weights_path):
         model.load_state_dict(torch.load(weights_path, map_location="cpu", weights_only=True),
                               strict=True)
@@ -55,10 +57,11 @@ def norm_pred(d: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def saliency_dout(model: torch.nn.Module, images_uint8: torch.Tensor) -> torch.Tensor:
-    """[B,H,W,3] uint8 → the raw ``dout`` map [B,256,256] (model in eval mode)."""
+    """[B,H,W,3] uint8 → the raw ``dout`` map [B,256,256] float32 (model in
+    eval mode)."""
     x, _ = preprocess_batch(images_uint8, None, size=IMG_SIZE)
     x = normalize_images(x).permute(0, 3, 1, 2)
-    return model.eval()(x)[0][:, 0]
+    return model.eval()(x)[0][:, 0].float()
 
 
 def saliency_step(model: torch.nn.Module, images_uint8: torch.Tensor) -> torch.Tensor:
@@ -78,16 +81,16 @@ def _pil_image():
 def run_inference(dataset, model: torch.nn.Module | None = None,
                   weights_path: str | None = "./Weights/basnet.pth", num_images: int = 10,
                   batch_size: int = 8, output_folder: str | None = "./basnet_outputs",
-                  log=print, device=None):
+                  log=print, device=None, dtype: str = "float32"):
     """Batched ``RunInference.py``: saliency maps, and per-image and mean IoU
     and accuracy against trimap == 1. ``model`` (on its own device) or, when
-    None, ``build_basnet(weights_path, device)``. PNGs go to ``output_folder``
+    None, ``build_basnet(weights_path, device, dtype=dtype)``. PNGs go to ``output_folder``
     unless it is None; they need PIL, which is checked before the model runs.
     A batch holds at most ``num_images`` images. Returns (results list of
     (iou, acc), mean IoU, mean accuracy)."""
     Image = _pil_image() if output_folder else None
     if model is None:
-        model = build_basnet(weights_path=weights_path, device=device)
+        model = build_basnet(weights_path=weights_path, device=device, dtype=dtype)
     dev = next(model.parameters()).device
     if output_folder:
         os.makedirs(output_folder, exist_ok=True)

@@ -5,7 +5,8 @@ Reference: FullySupervisedModel/SupervisedModel.py:85-123: DeepLabV3 (random
 init, 2 classes) on the true binarised masks, Adam(1e-4), CE; a validation
 per epoch; ``test_runs`` evaluations of the test set, then mean ± stdev of
 pixel accuracy and IoU. The reference's test runs repeat the same
-deterministic evaluation; they are kept for the printout.
+deterministic evaluation; they are kept for the printout. DeepLabV3 computes
+in float32 whatever ``seg.dtype`` says, as the JAX package's baseline does.
 """
 
 from __future__ import annotations

@@ -12,8 +12,15 @@ kernel on the card); ``seg.loss_fn`` is "cross_entropy" or "lovasz_softmax";
 and ``resume=True`` continues from the latest snapshot
 (``utils/checkpoint.py``). ``classifier_weights`` and ``seg_weights`` start
 the cycle from given state dicts (for instance a JAX tree's, carried across by
-``models/jax_import.py``) instead of the seeded ``init_weights``. Not ported
-yet: the CRF's other backends and compute types other than float32.
+``models/jax_import.py``) instead of the seeded ``init_weights``.
+
+``classifier.dtype`` and ``seg.dtype`` ("float32" or "bfloat16") are the two
+models' compute dtypes, on the resume path too, as in the JAX package:
+parameters, BatchNorm statistics, Adam's state and snapshots stay float32;
+the CAMs, DeepLabV3's logits, the losses, the refinement's inputs and the
+CRF's stay float32. The supervised baseline and the ablation grid build
+DeepLabV3 in float32 whatever ``seg.dtype`` says, as JAX's do. Not ported
+yet: the CRF's other backends.
 """
 
 from __future__ import annotations
@@ -58,8 +65,6 @@ def check_supported(cfg: ExperimentConfig):
     if cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1:
         raise ValueError(f"the port runs on one device; MeshConfig {cfg.mesh} needs "
                          "parallel/mesh.py, which is not ported yet")
-    if cfg.classifier.dtype != "float32" or cfg.seg.dtype != "float32":
-        raise NotImplementedError("the port computes in float32 only so far")
     if cfg.seg.loss_fn not in LOSSES:
         raise ValueError(f"unknown seg.loss_fn {cfg.seg.loss_fn!r}; expected one of {LOSSES}")
     if cfg.mask.use_crf and cfg.mask.crf_backend not in EXACT_BACKENDS:
@@ -79,11 +84,12 @@ def crf_kwargs(cfg: ExperimentConfig) -> dict | None:
 
 
 def build_classifier(cfg: ExperimentConfig, device, weights: dict | None = None) -> CamClassifier:
-    """The CAM classifier on ``device``: the state dict ``weights`` where
-    given, else seeded random weights."""
+    """The CAM classifier on ``device`` in ``classifier.dtype``: the state
+    dict ``weights`` where given, else seeded random weights."""
     model = CamClassifier(num_classes=cfg.data.num_classes, depth=cfg.classifier.depth,
                           width_multiplier=cfg.classifier.width_multiplier,
-                          dilate_layer4=cfg.classifier.dilate_layer4)
+                          dilate_layer4=cfg.classifier.dilate_layer4,
+                          dtype=cfg.classifier.dtype)
     if weights is None:
         init_weights(model, torch.Generator().manual_seed(cfg.seed))
     else:
@@ -91,9 +97,13 @@ def build_classifier(cfg: ExperimentConfig, device, weights: dict | None = None)
     return model.to(device)
 
 
-def build_seg_model(cfg: ExperimentConfig) -> DeepLabV3:
+def build_seg_model(cfg: ExperimentConfig, dtype: str = "float32") -> DeepLabV3:
+    """DeepLabV3 from ``cfg.seg`` in the compute ``dtype``: the cycle passes
+    ``seg.dtype``; the supervised baseline and the ablation grid keep the
+    default, as the JAX package's do."""
     return DeepLabV3(num_classes=cfg.seg.num_classes, backbone_depth=cfg.seg.backbone_depth,
-                     width_multiplier=cfg.seg.width_multiplier, bn_frozen=cfg.seg.bn_frozen)
+                     width_multiplier=cfg.seg.width_multiplier, bn_frozen=cfg.seg.bn_frozen,
+                     dtype=dtype)
 
 
 def load_test_arrays(cfg: ExperimentConfig, device):
@@ -149,8 +159,8 @@ def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch
     log(f"Pseudo masks generated: {len(store)}")
 
     # --- stage 4: DeepLabV3 on the pseudo-masks -------------------------------
-    seg_state = create_seg_state(build_seg_model(cfg), seed=cfg.seed + 1, lr=cfg.seg.lr,
-                                 device=dev)
+    seg_state = create_seg_state(build_seg_model(cfg, cfg.seg.dtype), seed=cfg.seed + 1,
+                                 lr=cfg.seg.lr, device=dev)
     if seg_weights is not None:
         seg_state.model.load_state_dict(seg_weights, strict=True)
     images, masks, _ = store.as_arrays()
@@ -198,8 +208,8 @@ def run_weakly_supervised_alternating(cfg: ExperimentConfig, checkpoint_dir: str
     d = cfg.data
     start_iteration = 0
     if resume:
-        seg_state = create_seg_state(build_seg_model(cfg), seed=cfg.seed + 1, lr=cfg.seg.lr,
-                                     device=dev)
+        seg_state = create_seg_state(build_seg_model(cfg, cfg.seg.dtype), seed=cfg.seed + 1,
+                                     lr=cfg.seg.lr, device=dev)
         seg_state, store, start_iteration = restore_alternation(checkpoint_dir, seg_state)
         with sw.phase("data", images=0):
             test_arrays = load_test_arrays(cfg, dev)

@@ -7,7 +7,9 @@ back to the store once. The store's images are uploaded once for the whole
 run and the masks stay on the device across training and sweeps. A sweep
 walks the store in order in batches (gather → preprocess → normalise →
 DeepLabV3 without gradient → softmax → refinement → masks written back in
-place); duplicate indices of the padded tail write identical values.
+place); duplicate indices of the padded tail write identical values. The
+softmax takes DeepLabV3's float32 logits whatever its compute dtype, so the
+refinement's S is float32, as in the JAX package.
 With a ``checkpoint_dir``, each alternation ends with a snapshot of the train
 state and the store (``utils/checkpoint.save_alternation``);
 ``start_iteration`` continues a run from one (``restore_alternation``).

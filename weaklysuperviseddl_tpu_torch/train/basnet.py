@@ -13,6 +13,11 @@ square root, ``train/guard.Adam``), the cosine decay of
 ``optax.cosine_decay_schedule`` and the clip of ``optax.clip_by_global_norm``
 (g · max_norm / ‖g‖ when ‖g‖ ≥ max_norm, with no epsilon in the denominator,
 unlike ``torch.nn.utils.clip_grad_norm_``).
+
+A bfloat16 BASNet (``BASNet(dtype="bfloat16")``) trains with float32
+parameters, Adam state and targets; its eight maps are promoted to float32
+before the loss. (JAX's ``train_basnet`` raises on a bfloat16 model: its SSIM
+convolves the bfloat16 map with a float32 window.)
 """
 
 from __future__ import annotations
@@ -85,8 +90,11 @@ def hybrid_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 def fusion_loss(outputs, target: torch.Tensor) -> torch.Tensor:
     """Deep supervision: the hybrid loss summed over the 8 maps ([B,1,H,W]
-    each) against one [B,H,W] target."""
-    return sum(hybrid_loss(d[:, 0], target) for d in outputs)
+    each, in the model's compute dtype) against one [B,H,W] target, each map
+    promoted to the target's float type (float32, or float64 in a float64
+    model) first."""
+    return sum(hybrid_loss(d[:, 0].to(torch.promote_types(d.dtype, target.dtype)), target)
+               for d in outputs)
 
 
 def cosine_decay(lr: float, decay_steps: int, alpha: float = 0.0) -> Callable[[int], float]:
@@ -148,6 +156,8 @@ def train_basnet(model: torch.nn.Module, images, targets, *, epochs: int = 10,
     device; each batch is a gather there, in the epoch order
     ``np.random.default_rng(seed).permutation(n)`` as in the JAX package. N
     must be a multiple of ``batch_size``. Losses are read back once an epoch.
+    Images and targets are uploaded in the parameters' float type (float32;
+    float64 for a model in double).
 
     From random weights the paper's Adam(1e-3) diverges; pass ``clip_norm``
     and a lower ``lr`` (3e-4 with clip 1.0 descends). ``lr_end`` turns on a
@@ -160,10 +170,11 @@ def train_basnet(model: torch.nn.Module, images, targets, *, epochs: int = 10,
     if n % batch_size:
         raise ValueError(f"{n} images are not a multiple of batch_size {batch_size}; "
                          "pad the dataset first")
-    dev = next(model.parameters()).device
-    dev_images = torch.as_tensor(images, dtype=torch.float32).to(dev).permute(0, 3, 1, 2)
+    param = next(model.parameters())
+    dev, dtype = param.device, param.dtype
+    dev_images = torch.as_tensor(images, dtype=dtype).to(dev).permute(0, 3, 1, 2)
     dev_images = dev_images.contiguous()
-    dev_targets = torch.as_tensor(targets, dtype=torch.float32).to(dev)
+    dev_targets = torch.as_tensor(targets, dtype=dtype).to(dev)
     optimizer = Adam(model.parameters(), lr=lr)
     schedule = (cosine_decay(lr, epochs * (n // batch_size), alpha=lr_end / lr)
                 if lr_end is not None else None)

@@ -10,12 +10,16 @@ every epoch trains the fc on that cache, batch by batch in the loader's
 order: the same updates as recomputing the backbone each epoch, which holds
 for loaders that are epoch-deterministic. Padded rows (``pad_to_full``)
 carry weight 0.
+
+In a bfloat16 classifier the cached features are pooled in bfloat16 (what
+the model's own forward feeds its fc) and each step's logits are the fc in
+its compute dtype on the float32 parameters, JAX's ``_fc_logits``; the
+weighted loss, the gradients and Adam's state are float32.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from weaklysuperviseddl_tpu_torch.data.preprocess import preprocess_batch
 from weaklysuperviseddl_tpu_torch.losses.basic import per_example_nll
@@ -29,7 +33,8 @@ def _device(model) -> torch.device:
 
 @torch.no_grad()
 def _batch_features(model, batch, image_size: int, interpolation: str):
-    """One loader batch → (pooled layer4 features [B,C], labels [B], valid [B] float)."""
+    """One loader batch → (pooled layer4 features [B,C] in the model's compute
+    dtype, labels [B], valid [B] float)."""
     dev = _device(model)
     x, _ = preprocess_batch(torch.from_numpy(batch.image).to(dev), None, size=image_size,
                             interpolation=interpolation)
@@ -48,7 +53,7 @@ def _pooled_features(model, loader, image_size: int, interpolation: str):
 def _fc_step(model, opt, feats, labels, valid):
     """One Adam step on the fc; returns (Σ weighted loss, Σ weighted correct, Σ weights)."""
     with torch.enable_grad():
-        logits = F.linear(feats, model.fc.weight, model.fc.bias)
+        logits = model.fc(feats)
         nll = per_example_nll(logits, labels)
         loss = (nll * valid).sum() / valid.sum().clamp(min=1.0)
         opt.zero_grad()
@@ -62,7 +67,7 @@ def _val_counts(model, val, num_classes: int):
     with torch.no_grad():
         counts = None
         for feats, labels, valid in val:
-            preds = F.linear(feats, model.fc.weight, model.fc.bias).argmax(dim=1)
+            preds = model.fc(feats).argmax(dim=1)
             c = classification_counts(preds, labels, num_classes, valid=valid > 0)
             counts = c if counts is None else {k: counts[k] + c[k] for k in c}
     return counts

@@ -10,6 +10,10 @@ rows carry weight 0 in the loss, as in the JAX package (they still enter the
 batch statistics, as they do there). The dataset is uploaded once and each
 batch is a gather on the device: uint8 → preprocess → ImageNet
 normalisation, masks nearest-resized (half-pixel centres) to ``seg_size``.
+A bfloat16 DeepLabV3 (``seg.dtype``) trains the same way: its parameters, its
+gradients and Adam's state are float32, its forward and backward run in
+bfloat16, and its logits come back float32, so the losses, the predictions
+and the evaluators are float32.
 
 The ASPP's dropout is seeded before every step from (seed + 1, epoch, step)
 through ``dropout_seed``, a fixed integer mix, so ``seed`` alone fixes a run
