@@ -175,6 +175,34 @@ Phases, one JSON line each:
                (flags on for that measurement only) and bfloat16: ms, img/s,
                peak GB; BASNet's bfloat16 saliency masks against float32's
                (>= 0.99).
+ 19. crf_backends - the pseudo-mask stage's CRF through masks_from_cams(
+               use_crf=True) at each of the five bilateral backends, with
+               pipelines/weakly.crf_kwargs's reference parameters: 32
+               synthetic pets at 224², CAMs from the full-width classifier;
+               the counts reset just before the extraction and the five
+               derivations and read just after (K3 6 launches each for
+               attention and subsampled, K2 once a backend, image plan). Per
+               backend: ms a batch of 32 (CUDA events, median of 3), peak GB,
+               mask agreement with attention's (reported), marginals
+               bit-equal across two launches (the lattice's checked); card
+               against CPU masks on images 0 and 31 for grid and lattice
+               (>= 0.999) and RFF (>= 0.99, the same seeded draws); the
+               lattice's precompute and one filter call at batch 32 (ms),
+               its vertices against its M entries and its raw filter
+               against K3's exact one on image 0.
+ 20. pseudo_stage - 1024 synthetic pets at 224², batch 32: extract_cams
+               resident and with spill_to_host (windows of 8 batches), and
+               masks_from_cams of each, K2's count reset just before and read
+               just after (one launch a batch); img/s and peak GB per mode;
+               spilled against resident CAMs and masks (cuDNN's default
+               backward differs between any two runs of a batch in the last
+               bits, so: masks >= 0.9999 by default, CAMs and masks bit-equal
+               with cudnn.deterministic); a MaskStore directory takes all 1024
+               pairs (the writer, "native" or "pil" with its build error;
+               seconds to submit and to flush; MaskStore.load equal to the
+               arrays); download_data(limit=256) from a Pet-layout directory
+               the phase writes, through batches with and without prefetch
+               into LayerCAM: img/s from disk.
 The serve_int8 line also profiles DeepLabV3's float32 forward layer by
 layer at batches 16 and 32 (each convolution of layer3, layer4 and the head
 replayed alone: its kernels and device ms an image; those whose kernels
@@ -2876,6 +2904,325 @@ def phase_bf16():
             "cycle_launches": launches}
 
 
+def crf_batch_inputs(resident, image_size: int, cam_thresh: float):
+    """The CRF's (probs [B,S,S,2], images [B,S,S,3] in [0,255]) of the
+    extraction's batch, as _derive_batch hands them to the CRF."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.data.preprocess import preprocess_batch
+
+    x, _ = preprocess_batch(resident.images_raw, None, size=image_size)
+    cam = torch.where(resident.cams < cam_thresh, torch.zeros_like(resident.cams),
+                      resident.cams)
+    return torch.stack([1.0 - cam, cam], dim=-1).clamp(1e-8, 1.0), x * 255.0
+
+
+def lattice_vs_exact(probs, images, sxy: float, srgb: float) -> dict:
+    """The lattice on the CRF's batch: the ms of its precompute and of one
+    filter call of the initial Q over the whole batch; on image 0 its
+    vertices against its M entries, and its raw filter against K3's exact
+    filter, each normalised by its own filter of ones (the two carry
+    different constant scales)."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.masks.densecrf import _bilateral_features
+    from weaklysuperviseddl_tpu_torch.masks.permutohedral import (
+        permutohedral_filter,
+        permutohedral_precompute,
+    )
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cuda
+
+    B = probs.shape[0]
+    feats = _bilateral_features(images, sxy, srgb).reshape(B, -1, 5).contiguous()
+    v = probs.reshape(B, -1, 2).contiguous()
+    pre = permutohedral_precompute(feats)
+    timing = {"batch": B,
+              "precompute_ms": cuda_ms(lambda: permutohedral_precompute(feats), runs=3, warmup=1),
+              "filter_ms": cuda_ms(lambda: permutohedral_filter(v, pre), runs=5, warmup=1)}
+    f0, v0 = feats[:1], v[:1]
+    ones = torch.ones((1, v0.shape[1], 1), device=v.device)
+    pre0 = permutohedral_precompute(f0)
+    lat = permutohedral_filter(v0, pre0) / permutohedral_filter(ones, pre0)
+    ex = gaussian_filter_cuda(f0, f0, v0) / gaussian_filter_cuda(f0, f0, ones)
+    diff = (lat - ex).abs()
+    return {"vertices_image0": int(pre["n_vertices"][0]), "M": pre["M"], **timing,
+            "filter_rel_max_image0": float(diff.max() / ex.abs().max()),
+            "filter_rel_mean_image0": float(diff.mean() / ex.abs().mean())}
+
+
+def phase_crf_backends():
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.config import ExperimentConfig, MaskConfig
+    from weaklysuperviseddl_tpu_torch.data.dataset import download_data
+    from weaklysuperviseddl_tpu_torch.data.loader import batches
+    from weaklysuperviseddl_tpu_torch.masks.densecrf import BACKENDS, densecrf_inference
+    from weaklysuperviseddl_tpu_torch.masks.pseudo import (
+        ResidentCams,
+        _derive_batch,
+        extract_cams,
+        masks_from_cams,
+    )
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cuda
+    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import cam_fusion_cuda
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+    from weaklysuperviseddl_tpu_torch.pipelines.weakly import crf_kwargs
+
+    n, size = 32, 224
+    m = MaskConfig()
+    kwargs = {be: crf_kwargs(ExperimentConfig(mask=MaskConfig(use_crf=True, crf_backend=be)))
+              for be in BACKENDS}
+    check(all(kw == {**CRF_REFERENCE, "bilat_backend": be} for be, kw in kwargs.items()),
+          f"CRF kwargs {kwargs} are not the reference's")
+    model = full_width_classifier(0)
+    ds = download_data(None, synthetic_size=n, image_size=size, seed=12)
+
+    # ---- the main path: every count from 0, CAMs then each backend's masks ----
+    for kernel in (gaussian_filter_cuda, cam_fusion_cuda):
+        kernel.launches = 0
+    reset_cc_counts()
+    resident = extract_cams(batches(ds, n, pad_to_full=True), model, image_size=size,
+                            max_images=n)
+    masks = {be: masks_from_cams(resident, cam_thresh=m.cam_thresh, use_crf=True,
+                                 crf_kwargs=kw).as_arrays()[1] for be, kw in kwargs.items()}
+    torch.cuda.synchronize()
+    launches = {"bilateral": gaussian_filter_cuda.launches,
+                "cc_label": label_components_cuda.launches,
+                "cam_fusion": cam_fusion_cuda.launches}
+    want_k3 = 2 * (1 + m.crf_iters)  # attention and subsampled, one batch each
+    check(launches["bilateral"] == want_k3,
+          f"crf_backends: bilateral launched {launches['bilateral']} times, expected {want_k3}")
+    check(launches["cc_label"] == len(BACKENDS),
+          f"crf_backends: cc_label launched {launches['cc_label']} times, not {len(BACKENDS)}")
+    check_cc_image_plan("crf_backends")
+
+    probs, images = crf_batch_inputs(resident, size, m.cam_thresh)
+    cpu_rows = [0, n - 1]
+    cpu_res = ResidentCams(resident.images_raw[cpu_rows].cpu(), resident.cams[cpu_rows].cpu(),
+                           resident.store_images[cpu_rows].cpu(), size, len(cpu_rows))
+    by_backend = {}
+    for be, kw in kwargs.items():
+        row = {"agreement_with_attention": float((masks[be] == masks["attention"]).mean()),
+               "fg_frac": float(masks[be].mean())}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        row["ms_per_batch32"] = cuda_ms(lambda: _derive_batch(
+            resident.images_raw, resident.cams, m.cam_thresh, True, True, size, kw),
+            runs=3, warmup=1)
+        row["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        row["peak_above_start_gb"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        crf = {k: v for k, v in kw.items() if k != "n_iters"}
+        q1 = densecrf_inference(probs, images, n_iters=m.crf_iters, **crf)
+        q2 = densecrf_inference(probs, images, n_iters=m.crf_iters, **crf)
+        row["marginals_bit_equal_across_launches"] = bool(torch.equal(q1, q2))
+        row["max_abs_q_between_launches"] = float((q1 - q2).abs().max())
+        del q1, q2
+        if be in ("grid", "lattice", "rff"):
+            t_cpu = time.perf_counter()
+            cpu_masks = masks_from_cams(cpu_res, cam_thresh=m.cam_thresh, use_crf=True,
+                                        crf_kwargs=kw).as_arrays()[1]
+            row["cpu_s_2_images"] = time.perf_counter() - t_cpu
+            row["card_vs_cpu_images_0_31"] = float((masks[be][cpu_rows] == cpu_masks).mean())
+            gate = 0.99 if be == "rff" else 0.999
+            check(row["card_vs_cpu_images_0_31"] >= gate,
+                  f"{be} CRF masks, card vs CPU on images 0 and 31: "
+                  f"{row['card_vs_cpu_images_0_31']} < {gate}")
+        by_backend[be] = row
+    check(by_backend["lattice"]["marginals_bit_equal_across_launches"],
+          "lattice CRF marginals differ between two launches")
+    # RFF's masks are noise at these bandwidths (reported, not checked)
+    check(all(0.0 < r["fg_frac"] < 1.0 for be, r in by_backend.items() if be != "rff"),
+          f"a backend's masks are empty or full: {by_backend}")
+    lattice = lattice_vs_exact(probs, images, CRF_REFERENCE["bilat_sxy"],
+                               CRF_REFERENCE["bilat_srgb"])
+    emit("crf_backends", entry="masks_from_cams(use_crf=True)", images=n, size=size,
+         crf=CRF_REFERENCE, backends=by_backend, lattice=lattice,
+         launches_main_path=launches, expected_bilateral_launches=want_k3,
+         cpu_gates={"grid": 0.999, "lattice": 0.999, "rff": 0.99})
+    return launches
+
+
+def write_pet_layout(root: pathlib.Path, images: np.ndarray, labels: np.ndarray,
+                     trimaps: np.ndarray):
+    """A Pet-layout directory: JPEG images cropped to ragged widths (so the
+    loader resizes them on the host, as it does real Pet photos), PNG
+    trimaps and annotations/trainval.txt (1-indexed classes)."""
+    from PIL import Image
+
+    (root / "images").mkdir(parents=True)
+    (root / "annotations" / "trimaps").mkdir(parents=True)
+    lines = []
+    for i in range(images.shape[0]):
+        w = images.shape[2] - images.shape[2] // 28 * (i % 6)
+        name = f"pet_{i:05d}"
+        Image.fromarray(images[i, :, :w]).save(root / "images" / f"{name}.jpg")
+        Image.fromarray(trimaps[i, :, :w]).save(root / "annotations" / "trimaps" / f"{name}.png")
+        lines.append(f"{name} {int(labels[i]) + 1} 1 1")
+    (root / "annotations" / "trainval.txt").write_text("\n".join(lines) + "\n")
+
+
+def loader_rate(dataset, model, batch_size: int, size: int, use_prefetch: bool) -> float:
+    """img/s of batches(dataset) feeding an upload, the preprocessing and
+    LayerCAM on the card, with or without prefetch."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.cam.layercam import layercam
+    from weaklysuperviseddl_tpu_torch.data.loader import batches, prefetch
+    from weaklysuperviseddl_tpu_torch.data.preprocess import preprocess_batch
+
+    stream = batches(dataset, batch_size, pad_to_full=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for batch in (prefetch(stream) if use_prefetch else stream):
+        x, _ = preprocess_batch(torch.from_numpy(batch.image).cuda(), None, size=size)
+        layercam(model, x, torch.from_numpy(batch.label).cuda(), output_size=size)
+        n += batch.num_valid
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def phase_pseudo_stage():
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.data.dataset import download_data
+    from weaklysuperviseddl_tpu_torch.data.loader import batches
+    from weaklysuperviseddl_tpu_torch.data.mask_store import MaskStore, native_error
+    from weaklysuperviseddl_tpu_torch.masks.pseudo import extract_cams, masks_from_cams
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+
+    n, batch_size, size, window = 1024, 32, 224, 8
+    model = full_width_classifier(0)
+    ds = download_data(None, synthetic_size=n, image_size=size, seed=21)
+
+    def timed_extract(**kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = extract_cams(batches(ds, batch_size, pad_to_full=True), model, image_size=size,
+                           max_images=None, **kw)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        return res, {"seconds": s, "img_per_s": n / s,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+                     "peak_above_start_gb": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                     "resident_gb": res.resident_bytes() / 2**30}
+
+    def timed_masks(res):
+        t0 = time.perf_counter()
+        store = masks_from_cams(res)
+        s = time.perf_counter() - t0
+        return store.as_arrays(), {"seconds": s, "img_per_s": n / s}
+
+    # ---- the main path: the count from 0, both extractions and derivations ----
+    reset_cc_counts()
+    spilled, spill_stats = timed_extract(spill_to_host=True, batches_per_dispatch=window)
+    resident, resident_stats = timed_extract()
+    (images_r, masks_r, keys), derive_resident = timed_masks(resident)
+    (images_s, masks_s, keys_s), derive_spilled = timed_masks(spilled)
+    torch.cuda.synchronize()
+    cc_launches = label_components_cuda.launches
+    want_cc = 2 * n // batch_size
+    check(cc_launches == want_cc, f"pseudo_stage: cc_label launched {cc_launches} times, "
+          f"expected {want_cc}")
+    check_cc_image_plan("pseudo_stage")
+    check(resident.on_device and not spilled.on_device, "pseudo_stage: residency flags")
+    # cuDNN's default backward-data kernels add in a varying order, so two
+    # runs of one batch differ in the last bits: spilled against resident,
+    # and a second resident run against the first, by default; bit-equal
+    # with cudnn.deterministic
+    default_mode = {
+        "cams_max_abs_spilled_vs_resident": float(
+            np.abs(spilled.cams - resident.cams.cpu().numpy()).max()),
+        "masks_agreement_spilled_vs_resident": float((masks_r == masks_s).mean()),
+        "store_images_equal": bool(np.array_equal(images_r, images_s)),
+    }
+    again, _ = timed_extract()
+    default_mode["cams_max_abs_resident_twice"] = float((again.cams - resident.cams).abs().max())
+    del again
+    check(keys == keys_s and default_mode["masks_agreement_spilled_vs_resident"] >= 0.9999,
+          f"spilled masks differ from the resident ones: {default_mode}")
+    fg = float(masks_r.mean())
+    check(0.01 < fg < 0.99, f"pseudo_stage masks are empty or full: {fg}")
+    del spilled
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        res_d, det_resident = timed_extract()
+        spill_d, det_spilled = timed_extract(spill_to_host=True, batches_per_dispatch=window)
+        det_masks = [masks_from_cams(r).as_arrays() for r in (res_d, spill_d)]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    check(np.array_equal(spill_d.cams, res_d.cams.cpu().numpy())
+          and np.array_equal(spill_d.store_images, res_d.store_images.cpu().numpy()),
+          "with cudnn.deterministic, spilled CAMs differ from the resident ones")
+    check(det_masks[0][2] == det_masks[1][2]
+          and all(np.array_equal(a, b) for a, b in zip(det_masks[0][:2], det_masks[1][:2])),
+          "with cudnn.deterministic, spilled masks differ from the resident ones")
+    deterministic = {"cams_and_masks_bit_equal": True,
+                     "extract_resident_img_per_s": det_resident["img_per_s"],
+                     "extract_spilled_img_per_s": det_spilled["img_per_s"]}
+    del res_d, spill_d, det_masks
+
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        PIL = None
+    store_dir = CKPT_ROOT / "pseudo_stage"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store = MaskStore(str(store_dir))
+    t0 = time.perf_counter()
+    for i, key in enumerate(keys):
+        store.put(key, images_r[i], masks_r[i])
+    submit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store.flush()
+    flush_s = time.perf_counter() - t0
+    store_line = {"writer": store.writer, "native_error": native_error(), "pairs": n,
+                  "submit_s": submit_s, "flush_s": flush_s,
+                  "mb_on_disk": sum(f.stat().st_size for f in store_dir.rglob("*.png")) / 2**20}
+    if PIL is not None:
+        t0 = time.perf_counter()
+        loaded_images, loaded_masks, loaded_keys = MaskStore.load(str(store_dir)).as_arrays()
+        store_line["load_s"] = time.perf_counter() - t0
+        check(loaded_keys == keys and np.array_equal(loaded_masks, masks_r)
+              and np.array_equal(loaded_images, images_r),
+              "MaskStore.load of the directory differs from the arrays")
+    else:
+        store_line["load"] = "skipped: no PIL on this host"
+    shutil.rmtree(store_dir, ignore_errors=True)
+
+    disk = {"skipped": "no PIL on this host"}
+    if PIL is not None:
+        root = CKPT_ROOT / "pet"
+        shutil.rmtree(root, ignore_errors=True)
+        n_disk, limit = 300, 256
+        synth = np.stack(ds.images[:n_disk]).astype(np.uint8)
+        write_pet_layout(root, synth, ds.labels[:n_disk], np.stack(ds.trimaps[:n_disk]))
+        t0 = time.perf_counter()
+        pets_disk = download_data(str(root), limit=limit)
+        decode_s = time.perf_counter() - t0
+        check(len(pets_disk) == limit, f"download_data(limit={limit}) gave {len(pets_disk)}")
+        loader_rate(pets_disk, model, batch_size, size, True)  # warm-up
+        plain = loader_rate(pets_disk, model, batch_size, size, False)
+        prefetched = loader_rate(pets_disk, model, batch_size, size, True)
+        disk = {"images": limit, "decode_s": decode_s, "decode_img_per_s": limit / decode_s,
+                "batches_img_per_s": plain, "batches_prefetch_img_per_s": prefetched,
+                "from_disk_img_per_s": limit / (decode_s + limit / plain),
+                "from_disk_prefetch_img_per_s": limit / (decode_s + limit / prefetched)}
+        shutil.rmtree(root, ignore_errors=True)
+    emit("pseudo_stage", entry="extract_cams + masks_from_cams", images=n,
+         batch_size=batch_size, size=size, batches_per_dispatch=window,
+         extract_resident=resident_stats, extract_spilled=spill_stats,
+         derive_resident=derive_resident, derive_spilled=derive_spilled,
+         default_mode=default_mode, cudnn_deterministic=deterministic, fg_frac=fg,
+         store=store_line, disk_loader=disk,
+         launches_main_path={"cc_label": cc_launches})
+    return {"cc_label": cc_launches}
+
+
 def main() -> int:
     import torch
 
@@ -2922,6 +3269,8 @@ def run_phases(seconds: dict, t_start: float) -> int:
     ablation_launches = timed("ablations", phase_ablations)
     timed("basnet", phase_basnet)
     fusion_bf16 = timed("bf16", phase_bf16)
+    backends_launches = timed("crf_backends", phase_crf_backends)
+    pseudo_launches = timed("pseudo_stage", phase_pseudo_stage)
 
     from weaklysuperviseddl_tpu_torch.masks.components import label_components
     from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda, plan_for
@@ -2931,7 +3280,9 @@ def run_phases(seconds: dict, t_start: float) -> int:
         paths["weakly_boundary"] = boundary_launches.get(name, 0)
         for path, counts in (("weakly_resume", resume_launches),
                              ("serve_checkpoint", serve_ckpt_launches),
-                             ("ablations", ablation_launches)):
+                             ("ablations", ablation_launches),
+                             ("crf_backends", backends_launches),
+                             ("pseudo_stage", pseudo_launches)):
             if name in counts:
                 paths[path] = counts[name]
         return {"launches": sum(paths.values()), "launches_by_path": paths}

@@ -2,7 +2,9 @@
 mean-field inference ("attention" and "subsampled"), ``apply_dense_crf`` and
 ``masks_from_cams(use_crf=True)``, against the JAX package on the same numpy
 inputs. Sizes stay at or below 64², where the JAX functions compute the exact
-filter off the TPU (above it they switch to their bilateral grid)."""
+filter off the TPU (above it they switch to their bilateral grid). The grid,
+lattice and RFF backends are in test_torch_crf_backends.py and
+test_torch_lattice.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -161,12 +163,8 @@ def test_apply_dense_crf_masks_equal_jax(backend):
     assert 0.05 < want.mean() < 0.95  # the masks have structure
 
 
-@pytest.mark.parametrize("backend", ["grid", "lattice", "rff"])
-def test_densecrf_refuses_backends_not_ported(backend):
+def test_densecrf_rejects_unknown_backend():
     probs = np.full((1, 8, 8, 2), 0.5, np.float32)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        densecrf_inference(torch.from_numpy(probs), torch.zeros((1, 8, 8, 3)),
-                           bilat_backend=backend)
     with pytest.raises(ValueError, match="unknown"):
         densecrf_inference(torch.from_numpy(probs), torch.zeros((1, 8, 8, 3)),
                            bilat_backend="exact")

@@ -1,7 +1,7 @@
 """The whole slice on the CPU: ``weakly --alternating --smoke --device cpu``
 runs end to end through the CLI (with the cross-entropy loss, and with the
-dense CRF and the Lovász loss), and the pipeline refuses what is not ported
-yet."""
+dense CRF and the Lovász loss, and with the CRF's lattice), and the pipeline
+refuses what is not ported yet."""
 
 import dataclasses
 import json
@@ -56,6 +56,27 @@ def test_weakly_alternating_smoke_cli_with_crf_and_lovasz(tmp_path, capsys):
                                      "seg_training", "eval", "refinement_sweeps", "store_sync"}
 
 
+def test_weakly_alternating_smoke_cli_with_the_lattice_crf(tmp_path, capsys):
+    """The cycle with the CRF's permutohedral lattice, set on the CLI, runs
+    to its end on the CPU."""
+    timings = tmp_path / "t.json"
+    assert main(["weakly", "--alternating", "--smoke", "--device", "cpu",
+                 "--timings-out", str(timings), "--mask.use_crf", "true",
+                 "--mask.crf_backend", "lattice", "--alternating.refine.num_steps", "2"]) == 0
+    metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for key in ("iou", "acc", "final_loss", "alt_iou", "alt_acc"):
+        assert math.isfinite(metrics[key]), key
+    record = json.loads(timings.read_text())
+    assert record["config"]["mask"]["crf_backend"] == "lattice"
+    assert record["phases"]["pseudo_mask_generation"]["calls"] == 1
+
+
+def test_pipeline_rejects_an_unknown_crf_backend():
+    cfg = dataclasses.replace(smoke_config(), mask=MaskConfig(use_crf=True, crf_backend="exact"))
+    with pytest.raises(ValueError, match="crf_backend"):
+        run_weakly_supervised_alternating(cfg, device="cpu")
+
+
 def test_crf_kwargs_follow_the_config():
     """The pipeline passes the CRF the config's fields under densecrf's names,
     as the JAX pipeline does."""
@@ -72,7 +93,6 @@ def test_crf_kwargs_follow_the_config():
 @pytest.mark.parametrize("change,match", [
     (dict(mesh=MeshConfig(data=2)), "one device"),
     (dict(mesh=MeshConfig(model=2)), "one device"),
-    (dict(mask=MaskConfig(use_crf=True, crf_backend="grid")), "grid"),
 ])
 def test_pipeline_refuses_what_is_not_ported(change, match):
     cfg = dataclasses.replace(smoke_config(), **change)

@@ -47,12 +47,15 @@ def _pet_root_valid(root: str | None) -> bool:
         os.path.join(root, "annotations", "trimaps"))
 
 
-def _load_pet_from_disk(root: str, split: str) -> PetDataset:
+def _load_pet_from_disk(root: str, split: str, limit: int | None = None) -> PetDataset:
+    """The first ``limit`` entries (all without it) of the split's list file."""
     from PIL import Image
 
     with open(os.path.join(root, "annotations", f"{split}.txt")) as f:
         entries = [line.strip().split(" ") for line in f
                    if line.strip() and not line.startswith("#")]
+    if limit is not None:
+        entries = entries[:limit]
     images, labels, trimaps = [], [], []
     for entry in entries:
         name = entry[0]
@@ -74,11 +77,15 @@ def _synthetic_dataset(split: str, n: int, image_size: int, seed: int,
 
 
 def download_data(pth: str | None = None, split: str = "trainval", synthetic_size: int = 128,
-                  image_size: int = 224, seed: int = 0, num_classes: int = 37) -> PetDataset:
-    """The Pet dataset from disk, or a synthetic one with the same contract."""
+                  image_size: int = 224, seed: int = 0, limit: int | None = None,
+                  num_classes: int = 37) -> PetDataset:
+    """The Pet dataset from disk (its first ``limit`` entries), or a
+    synthetic one with the same contract (``min(limit, synthetic_size)``
+    pets)."""
     if _pet_root_valid(pth):
-        return _load_pet_from_disk(pth, split)
-    return _synthetic_dataset(split, synthetic_size, image_size, seed, num_classes)
+        return _load_pet_from_disk(pth, split, limit=limit)
+    n = synthetic_size if limit is None else min(limit, synthetic_size)
+    return _synthetic_dataset(split, n, image_size, seed, num_classes)
 
 
 def load_split_data(pth: str | None = None, train_ratio: float = 0.8, seed: int = 0, **kwargs):

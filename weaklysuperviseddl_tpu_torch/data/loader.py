@@ -4,11 +4,14 @@ weaklysuperviseddl_tpu/data/loader.py).
 Same order, same ``pad_to_full`` padding and the same host resize policy as
 the JAX package: uniform datasets (synthetic) stack as they are; ragged decodes
 (real Pet) are host-resized with PIL to 256² (the JAX default ``stack_size``).
-PIL is imported only on that path.
+PIL is imported only on that path. ``prefetch`` stacks batches on a
+background thread while the caller works on the last one.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -86,3 +89,50 @@ def stack_dataset(dataset):
     return (np.stack([s[0] for s in samples]).astype(np.uint8),
             dataset.labels.astype(np.int32),
             np.stack([s[1] for s in samples]).astype(np.uint8))
+
+
+def prefetch(iterator, size: int = 2):
+    """Iterate ``iterator`` on a background thread, at most ``size`` items
+    ahead, in order: host decoding and stacking overlap the device's work
+    (the reference's DataLoader workers, AlternatingDirectionCutLoss.py:476).
+
+    An exception the iterator raises is raised here, after the items before
+    it; JAX's ``prefetch`` ends the stream silently instead. Leaving the loop
+    early stops the thread at its next item."""
+    q: queue.Queue = queue.Queue(maxsize=size)
+    done = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        exc = None
+        try:
+            for item in iterator:
+                if not put((item, None)):
+                    return
+        except Exception as e:  # handed to the consumer, which raises it
+            exc = e
+        finally:
+            put((done, exc))
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item, exc = q.get()
+            if item is done:
+                if exc is not None:
+                    raise exc
+                return
+            yield item
+    finally:
+        stop.set()
+        thread.join(timeout=1.0)

@@ -3,9 +3,16 @@
 The reference's pipeline state is a PNG directory of pseudo-masks; this store
 keeps that contract (8-bit PNG masks {0, 255}, reloaded as ``mask == 255``;
 keys sorted for alignment) and an in-memory path, which is what the training
-loop uses. PNGs are written with PIL, synchronously, imported only when a
-directory is given. The JAX package's native asynchronous PNG writer (and so
-its ``flush`` barrier) is not ported.
+loop uses.
+
+With a directory, PNGs are written as in the JAX package: through the port's
+native asynchronous writer (``native/``, built with g++ on first use), whose
+threads encode and write while the caller goes on, and ``flush`` is the
+durability barrier (``masks_from_cams`` calls it at the end of the stage,
+``load`` before it lists a directory). Where the writer cannot be built, the
+store writes synchronously with PIL, as JAX's does, and says so:
+``writer`` is "native" or "pil" (None without a directory) and
+``native_error()`` the build's error.
 
 ``save_arrays``/``load_arrays`` keep the whole store (keys, images, masks) in
 one ``.npz`` file and need no PIL: the checkpoint snapshots use them.
@@ -18,6 +25,28 @@ import os
 import numpy as np
 
 
+def _native_io():
+    """The native writer's module, or None where it cannot be built."""
+    from weaklysuperviseddl_tpu_torch import native
+
+    try:
+        native.load()
+    except RuntimeError:
+        return None
+    return native
+
+
+def native_error() -> str | None:
+    """Why the native writer is unavailable (its build's error), or None."""
+    from weaklysuperviseddl_tpu_torch import native
+
+    try:
+        native.load()
+    except RuntimeError as exc:
+        return str(exc)
+    return None
+
+
 class MaskStore:
     """Holds (image uint8 [H,W,3], mask uint8 {0,1} [H,W]) pairs by string key."""
 
@@ -25,11 +54,16 @@ class MaskStore:
         self.directory = directory
         self._images: dict[str, np.ndarray] = {}
         self._masks: dict[str, np.ndarray] = {}
+        self._dirty = False
+        self._native = None
+        self.writer = None
         if directory is not None:
             self.image_dir = os.path.join(directory, "images")
             self.mask_dir = os.path.join(directory, "pseudo_masks")
             os.makedirs(self.image_dir, exist_ok=True)
             os.makedirs(self.mask_dir, exist_ok=True)
+            self._native = _native_io()
+            self.writer = "pil" if self._native is None else "native"
 
     def put(self, key: str, image: np.ndarray | None, mask: np.ndarray):
         mask = np.asarray(mask).astype(np.uint8)
@@ -44,11 +78,27 @@ class MaskStore:
                 image = ((image - lo) / max(hi - lo, 1e-8) * 255).astype(np.uint8)
             self._images[key] = image
         if self.directory is not None:
-            from PIL import Image
+            self._write_png(key, image, mask)
 
-            Image.fromarray(mask * 255).save(os.path.join(self.mask_dir, f"{key}.png"))
+    def _write_png(self, key: str, image: np.ndarray | None, mask: np.ndarray):
+        if self._native is not None:
+            self._native.png_write_async(os.path.join(self.mask_dir, f"{key}.png"), mask * 255)
             if image is not None:
-                Image.fromarray(image).save(os.path.join(self.image_dir, f"{key}.png"))
+                self._native.png_write_async(os.path.join(self.image_dir, f"{key}.png"), image)
+            self._dirty = True
+            return
+        from PIL import Image
+
+        Image.fromarray(mask * 255).save(os.path.join(self.mask_dir, f"{key}.png"))
+        if image is not None:
+            Image.fromarray(image).save(os.path.join(self.image_dir, f"{key}.png"))
+
+    def flush(self):
+        """The durability barrier: returns once every PNG this store queued
+        is written; raises ``OSError`` naming the paths that failed."""
+        if self._dirty:
+            self._dirty = False
+            self._native.io_flush()
 
     def update_mask(self, key: str, mask: np.ndarray):
         """Refinement overwrite (ref AlternatingDirectionCutLoss.py:808-809)."""
@@ -91,9 +141,13 @@ class MaskStore:
 
     @classmethod
     def load(cls, directory: str) -> "MaskStore":
-        """Rehydrate from the PNG directories (mask pixel 255 → foreground)."""
+        """Rehydrate from the PNG directories (mask pixel 255 → foreground),
+        after the writes still queued have landed."""
         from PIL import Image
 
+        nat = _native_io()
+        if nat is not None:
+            nat.io_flush()
         store = cls(directory=None)
         image_dir = os.path.join(directory, "images")
         mask_dir = os.path.join(directory, "pseudo_masks")

@@ -16,8 +16,17 @@ rows are dropped.
 In a bfloat16 classifier the stored images stay uint8 and the CAMs float32
 (``cam/layercam.py``), so the masks are derived as in float32.
 
-Not ported yet: the host-spilling extraction (``spill_to_host=True``), which
-raises.
+``spill_to_host=True`` is the streaming form for sets beyond the card's
+memory, as in the JAX package: windows of ``batches_per_dispatch`` batches
+(8 by default) are uploaded, swept and read back to host numpy before the
+next upload, and ``masks_from_cams`` streams the host-resident CAMs through
+the card the same way. Each batch runs the same body on the same values, so
+the CAMs and masks are bit-identical to the resident path's wherever the
+device's kernels are deterministic: always on the CPU, and on the card with
+``torch.backends.cudnn.deterministic`` (cuDNN's default backward-data
+kernels give two runs of one batch CAMs a few 1e-7 apart). The resident
+path runs batch by batch whatever ``batches_per_dispatch`` says (the port
+builds no device program to batch over).
 """
 
 from __future__ import annotations
@@ -62,26 +71,54 @@ def _index_table(n: int, batch_size: int) -> np.ndarray:
 
 @dataclass
 class ResidentCams:
-    """CAM extraction output, on the device: everything mask derivation needs."""
+    """CAM extraction output: everything mask derivation needs. With
+    ``on_device`` (the default) the tensors live on ``device``, the card's
+    memory; without it (``spill_to_host``) they are host numpy arrays and
+    derivation streams windows of them through ``device``."""
 
     images_raw: torch.Tensor    # [N,H,W,3] uint8, the loader's raw decodes
     cams: torch.Tensor          # [N,S,S] float32 in [0,1]
     store_images: torch.Tensor  # [N,S,S,3] uint8 (min-max unnormalised)
     image_size: int
     batch_size: int
+    on_device: bool = True
+    device: torch.device | None = None  # None: the tensors' device
+
+    def __post_init__(self):
+        if self.device is None:
+            self.device = self.cams.device if self.on_device else torch.device("cpu")
 
     def __len__(self):
         return int(self.cams.shape[0])
 
+    def resident_bytes(self) -> int:
+        """The device bytes this extraction holds (0 when spilled):
+        N·(H·W·3 + S²·4 + S²·3)."""
+        if not self.on_device:
+            return 0
+        return sum(t.numel() * t.element_size()
+                   for t in (self.images_raw, self.cams, self.store_images))
+
+
+def _cam_batch(model, raw, labels, target_layers, alpha, alpha_mode, image_size):
+    """One batch's (CAM [B,S,S], store image [B,S,S,3] uint8): the one body
+    of the resident and the spilled sweeps, so that they cannot drift."""
+    x, _ = preprocess_batch(raw, None, size=image_size)
+    cam, _ = layercam(model, x, labels, target_layers=tuple(target_layers), alpha=alpha,
+                      alpha_mode=alpha_mode, output_size=image_size)
+    return cam, _store_image_u8(x)
+
 
 def extract_cams(loader, model, alpha: float = 1.0, target_layers=("layer3", "layer4"),
                  alpha_mode: str = "per_layer", image_size: int = 224,
-                 max_images: int | None = 500, spill_to_host: bool = False) -> ResidentCams:
+                 max_images: int | None = 500, batches_per_dispatch: int | None = None,
+                 spill_to_host: bool = False) -> ResidentCams:
     """Stage 1: LayerCAM over the loader's images (capped at ``max_images``),
     with the ground-truth labels selecting the class. Images are preprocessed
-    without ImageNet normalisation, as the JAX call site does."""
-    if spill_to_host:
-        raise NotImplementedError("spill_to_host is not ported yet")
+    without ImageNet normalisation, as the JAX call site does. The loader is
+    drained once; the set is uploaded once, or with ``spill_to_host`` a
+    window of ``batches_per_dispatch`` (default 8) batches at a time, each
+    window's results read back to the host before the next upload."""
     dev = next(model.parameters()).device
     imgs, labels = [], []
     n, batch_size = 0, None
@@ -100,17 +137,38 @@ def extract_cams(loader, model, alpha: float = 1.0, target_layers=("layer3", "la
                                         device=dev), empty,
                             torch.zeros((0, image_size, image_size, 3), dtype=torch.uint8,
                                         device=dev), image_size, batch_size or 1)
-    images_all = torch.from_numpy(np.concatenate(imgs)).to(dev)
-    labels_all = torch.from_numpy(np.concatenate(labels)).to(dev)
-    cams, store_imgs = [], []
-    for idx in torch.from_numpy(_index_table(n, batch_size)).to(dev):
-        x, _ = preprocess_batch(images_all[idx], None, size=image_size)
-        cam, _ = layercam(model, x, labels_all[idx], target_layers=tuple(target_layers),
-                          alpha=alpha, alpha_mode=alpha_mode, output_size=image_size)
-        cams.append(cam)
-        store_imgs.append(_store_image_u8(x))
-    return ResidentCams(images_all, torch.cat(cams)[:n], torch.cat(store_imgs)[:n],
-                        image_size, batch_size)
+    images_np = np.concatenate(imgs)
+    labels_np = np.concatenate(labels)
+    B = batch_size
+    idx_table = _index_table(n, B)
+    body = dict(target_layers=target_layers, alpha=alpha, alpha_mode=alpha_mode,
+                image_size=image_size)
+
+    if spill_to_host:
+        K = batches_per_dispatch or 8
+        T = idx_table.shape[0]
+        cams_np = np.empty((T * B, image_size, image_size), np.float32)
+        store_np = np.empty((T * B, image_size, image_size, 3), np.uint8)
+        for start in range(0, T, K):
+            window = idx_table[start:start + K].reshape(-1)
+            raws = torch.from_numpy(images_np[window]).to(dev)
+            labs = torch.from_numpy(labels_np[window]).to(dev)
+            out = [_cam_batch(model, raws[j:j + B], labs[j:j + B], **body)
+                   for j in range(0, window.shape[0], B)]
+            # the window's readback before the next upload: the device holds
+            # one window at a time
+            rows = slice(start * B, start * B + window.shape[0])
+            cams_np[rows] = torch.cat([c for c, _ in out]).cpu().numpy()
+            store_np[rows] = torch.cat([im for _, im in out]).cpu().numpy()
+        return ResidentCams(images_np, cams_np[:n], store_np[:n], image_size, B,
+                            on_device=False, device=dev)
+
+    images_all = torch.from_numpy(images_np).to(dev)
+    labels_all = torch.from_numpy(labels_np).to(dev)
+    out = [_cam_batch(model, images_all[idx], labels_all[idx], **body)
+           for idx in torch.from_numpy(idx_table).to(dev)]
+    return ResidentCams(images_all, torch.cat([c for c, _ in out])[:n],
+                        torch.cat([im for _, im in out])[:n], image_size, B)
 
 
 def _derive_batch(raw: torch.Tensor, cam: torch.Tensor, cam_thresh: float,
@@ -137,13 +195,15 @@ def masks_from_cams(resident: ResidentCams, cam_thresh: float = 0.3,
                     max_images: int | None = None) -> MaskStore:
     """Stage 2: threshold → (optional dense CRF, ``crf_kwargs`` passed to
     ``densecrf_inference``) → largest component, batch by batch; results land
-    in a MaskStore keyed by zero-padded running id.
+    in a MaskStore keyed by zero-padded running id, flushed before this
+    returns (the directory is the stage's output).
 
     ``order`` ([M] indices): derive the masks, and take the store images, in
     this order (the ablation grid's shuffled loader order per repeat), as if
     the CAMs had been extracted from a loader in that order. ``max_images``
     caps the output after ordering (the reference caps its shuffled stream,
-    PsuedoMasks.py:34)."""
+    PsuedoMasks.py:34). Spilled CAMs stream through ``resident.device`` in
+    windows of 8 batches."""
     store = MaskStore(directory=store_dir)
     n_all = len(resident)
     order = np.arange(n_all) if order is None else np.asarray(order, np.int64)
@@ -152,17 +212,38 @@ def masks_from_cams(resident: ResidentCams, cam_thresh: float = 0.3,
     n = order.shape[0]
     if n == 0:
         return store
-    dev = resident.cams.device
-    idx_table = torch.from_numpy(order[_index_table(n, resident.batch_size)]).to(dev)
+    B, S = resident.batch_size, resident.image_size
+    idx_table = order[_index_table(n, B)]
     crf_kwargs = dict(crf_kwargs or {})
-    masks = torch.cat([_derive_batch(resident.images_raw[idx] if use_crf else None,
-                                     resident.cams[idx], cam_thresh, keep_largest_masks,
-                                     use_crf, resident.image_size, crf_kwargs)
-                       for idx in idx_table])[:n]
-    masks_np = masks.cpu().numpy()
-    images_np = resident.store_images[torch.from_numpy(order).to(dev)].cpu().numpy()
+
+    def derive(raw, cam):
+        return _derive_batch(raw, cam, cam_thresh, keep_largest_masks, use_crf, S, crf_kwargs)
+
+    if resident.on_device:
+        dev = resident.device
+        masks = torch.cat([derive(resident.images_raw[idx] if use_crf else None,
+                                  resident.cams[idx])
+                           for idx in torch.from_numpy(idx_table).to(dev)])[:n]
+        masks_np = masks.cpu().numpy()
+        images_np = resident.store_images[torch.from_numpy(order).to(dev)].cpu().numpy()
+    else:
+        # upload a window's content, derive, read back: the device holds one
+        # window at a time
+        K = 8
+        masks_np = np.empty((idx_table.size, S, S), np.uint8)
+        for start in range(0, idx_table.shape[0], K):
+            window = idx_table[start:start + K].reshape(-1)
+            cams = torch.from_numpy(resident.cams[window]).to(resident.device)
+            raws = (torch.from_numpy(resident.images_raw[window]).to(resident.device)
+                    if use_crf else None)
+            out = [derive(None if raws is None else raws[j:j + B], cams[j:j + B])
+                   for j in range(0, window.shape[0], B)]
+            masks_np[start * B:start * B + window.shape[0]] = torch.cat(out).cpu().numpy()
+        masks_np = masks_np[:n]
+        images_np = resident.store_images[order]
     for img_id in range(n):
         store.put(f"{img_id:05d}", images_np[img_id], masks_np[img_id])
+    store.flush()
     return store
 
 
@@ -171,7 +252,7 @@ def generate_pseudo_masks(loader, model, cam_thresh: float = 0.3, alpha: float =
                           target_layers=("layer3", "layer4"), alpha_mode: str = "per_layer",
                           image_size: int = 224, max_images: int = 500,
                           store_dir: str | None = None, use_crf: bool = False,
-                          crf_kwargs: dict | None = None,
+                          crf_kwargs: dict | None = None, batches_per_dispatch: int | None = None,
                           spill_to_host: bool = False) -> MaskStore:
     """``extract_cams`` then ``masks_from_cams``, with the reference contract
     (PsuedoMasks.py:23-79): ground-truth labels drive the CAM class, output
@@ -180,7 +261,8 @@ def generate_pseudo_masks(loader, model, cam_thresh: float = 0.3, alpha: float =
     del run_id  # kept for the reference's signature
     resident = extract_cams(loader, model, alpha=alpha, target_layers=target_layers,
                             alpha_mode=alpha_mode, image_size=image_size,
-                            max_images=max_images, spill_to_host=spill_to_host)
+                            max_images=max_images, batches_per_dispatch=batches_per_dispatch,
+                            spill_to_host=spill_to_host)
     return masks_from_cams(resident, cam_thresh=cam_thresh,
                            keep_largest_masks=keep_largest_masks, use_crf=use_crf,
                            crf_kwargs=crf_kwargs, store_dir=store_dir)

@@ -5,8 +5,9 @@ weaklysuperviseddl_tpu/pipelines/weakly.py; ref AlternatingDirectionCutLoss.py:4
 Every entry point runs on the card unless ``device="cpu"`` is given, and
 raises without a card. The port runs on one device: a ``MeshConfig`` other
 than data ∈ {-1, 1}, model == 1 raises. ``mask.use_crf`` runs the dense CRF
-with the "attention" or "subsampled" backend (the bilateral filter is a CUDA
-kernel on the card); ``seg.loss_fn`` is "cross_entropy" or "lovasz_softmax";
+with any of JAX's bilateral backends, "attention", "subsampled", "grid",
+"lattice" or "rff" (the exact filter of the first two is a CUDA kernel on
+the card); ``seg.loss_fn`` is "cross_entropy" or "lovasz_softmax";
 ``seg.bn_frozen`` trains DeepLabV3 with frozen BatchNorm statistics. With a
 ``checkpoint_dir`` the alternating loop snapshots every alternation there,
 and ``resume=True`` continues from the latest snapshot
@@ -19,8 +20,7 @@ models' compute dtypes, on the resume path too, as in the JAX package:
 parameters, BatchNorm statistics, Adam's state and snapshots stay float32;
 the CAMs, DeepLabV3's logits, the losses, the refinement's inputs and the
 CRF's stay float32. The supervised baseline and the ablation grid build
-DeepLabV3 in float32 whatever ``seg.dtype`` says, as JAX's do. Not ported
-yet: the CRF's other backends.
+DeepLabV3 in float32 whatever ``seg.dtype`` says, as JAX's do.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from weaklysuperviseddl_tpu_torch.config import ExperimentConfig
 from weaklysuperviseddl_tpu_torch.data.dataset import download_data, load_split_data
 from weaklysuperviseddl_tpu_torch.data.loader import batches, stack_dataset
 from weaklysuperviseddl_tpu_torch.device import resolve_device
-from weaklysuperviseddl_tpu_torch.masks.densecrf import EXACT_BACKENDS
+from weaklysuperviseddl_tpu_torch.masks.densecrf import BACKENDS
 from weaklysuperviseddl_tpu_torch.masks.pseudo import generate_pseudo_masks
 from weaklysuperviseddl_tpu_torch.models.classifier import CamClassifier
 from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
@@ -67,9 +67,9 @@ def check_supported(cfg: ExperimentConfig):
                          "parallel/mesh.py, which is not ported yet")
     if cfg.seg.loss_fn not in LOSSES:
         raise ValueError(f"unknown seg.loss_fn {cfg.seg.loss_fn!r}; expected one of {LOSSES}")
-    if cfg.mask.use_crf and cfg.mask.crf_backend not in EXACT_BACKENDS:
-        raise NotImplementedError(f"mask.crf_backend={cfg.mask.crf_backend!r} is not ported "
-                                  f"yet; the port runs {EXACT_BACKENDS}")
+    if cfg.mask.use_crf and cfg.mask.crf_backend not in BACKENDS:
+        raise ValueError(f"unknown mask.crf_backend {cfg.mask.crf_backend!r}; expected one of "
+                         f"{BACKENDS}")
 
 
 def crf_kwargs(cfg: ExperimentConfig) -> dict | None:
