@@ -203,6 +203,22 @@ Phases, one JSON line each:
                arrays); download_data(limit=256) from a Pet-layout directory
                the phase writes, through batches with and without prefetch
                into LayerCAM: img/s from disk.
+ 21. mesh    - the ('data', 'model') mesh under NCCL with a world of every
+               visible card (in this process on one card; else one spawned
+               rank a card). The path, every count reset just before and
+               read just after: the port's dryrun (JAX's dryrun_multichip
+               stage for stage, its lines printed), the alternating loop
+               on the mesh (full-width DeepLabV3-R50, 8 pets at 256², one
+               sweep: K1 2 launches, all v1sym), Predictor(mesh=) on a
+               local mesh of the cards at full width, float32 and int8,
+               clean and packed (K2, Q1, Q2; the dryrun's CRFs K3 6
+               times). Then: those masks bit-equal to the one-device
+               Predictor's; the sharded step at batch 4 a shard against
+               the one-device step from the same seed (at a world of 1 the
+               forward's bits equal; the parameters within 2.5e-4, as two
+               one-device steps, whose backward adds with atomics); and
+               refine_spatial_sharded at 1024², 3 steps, against
+               refine_plain (loss rtol 1e-4, masks > 0.999). Stage seconds.
 The serve_int8 line also profiles DeepLabV3's float32 forward layer by
 layer at batches 16 and 32 (each convolution of layer3, layer4 and the head
 replayed alone: its kernels and device ms an image; those whose kernels
@@ -3223,6 +3239,232 @@ def phase_pseudo_stage():
     return {"cc_label": cc_launches}
 
 
+MESH_KERNELS = ("cc_label", "bilateral", "refine", "quantize_gather", "dequant_epilogue")
+
+
+def mesh_counts() -> dict:
+    """The launch counts of the kernels the mesh path runs."""
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cuda
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
+
+    return {"cc_label": label_components_cuda.launches,
+            "bilateral": gaussian_filter_cuda.launches, "refine": refine_cuda.launches,
+            **qconv_counts()}
+
+
+def mesh_store(n: int, size: int, seed: int):
+    """An in-memory MaskStore of ``n`` synthetic pets at ``size``², each
+    mask its trimap's foreground (the alternating loop's input)."""
+    from weaklysuperviseddl_tpu_torch.data.dataset import download_data
+    from weaklysuperviseddl_tpu_torch.data.mask_store import MaskStore
+
+    ds = download_data(None, split="train", synthetic_size=n, image_size=size, seed=seed)
+    store = MaskStore()
+    for i in range(n):
+        store.put(f"{i:04d}", np.asarray(ds.images[i], np.uint8),
+                  (np.asarray(ds.trimaps[i]) == 1).astype(np.uint8))
+    return store
+
+
+def mesh_rank() -> dict:
+    """The mesh phase on one rank of the NCCL group (all of it on one card).
+
+    The path, the counts set to 0 just before it and read just after: the
+    dryrun (parallel/dryrun.py); the alternating loop on the mesh
+    (run_alternating_training(mesh=)) with the full-width DeepLabV3 at 256²
+    over 8 pets; Predictor(mesh=) on a local mesh of the visible cards,
+    float32 and int8, clean and packed, at the full width. Then, outside the
+    path: the one-device Predictor on the same requests (bit-equal), the
+    sharded segmentation step against the one-device step from the same
+    seed, and refine_spatial_sharded at 1024² against refine_plain."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from weaklysuperviseddl_tpu_torch.config import AlternatingConfig, ExperimentConfig
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3, seed_dropout
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cuda
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda, refine_plain
+    from weaklysuperviseddl_tpu_torch.parallel.dryrun import dryrun_multichip
+    from weaklysuperviseddl_tpu_torch.parallel.mesh import (
+        is_main_rank,
+        make_mesh,
+        shard_batch,
+        visible_cards,
+    )
+    from weaklysuperviseddl_tpu_torch.parallel.spatial import refine_spatial_sharded, shard_spatial
+    from weaklysuperviseddl_tpu_torch.pipelines.serve import Predictor
+    from weaklysuperviseddl_tpu_torch.train.alternating import run_alternating_training
+    from weaklysuperviseddl_tpu_torch.train.segmentation import create_seg_state, seg_train_step
+    from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch
+
+    world = dist.get_world_size()
+    out: dict = {"world": world, "backend": dist.get_backend()}
+    check(out["backend"] == "nccl", f"the mesh runs on {out['backend']}, not NCCL")
+    mesh = make_mesh()  # every rank on 'data', as MeshConfig() places a run
+    size, max_batch = 256, 16
+    model, _, _ = serve_model()
+    requests = pets("test", max_batch, size, seed=31)
+    ragged = requests[:5]
+    sw = Stopwatch("cuda")
+    cfg = dataclasses.replace(ExperimentConfig(), alternating=AlternatingConfig(
+        num_alternations=1, epochs_per_round=1, refine_repeats=1))
+    store = mesh_store(8, 224, seed=33)
+
+    # ---- the main path: every count from 0, the path, the counts read after ----
+    for kernel in (gaussian_filter_cuda, refine_cuda):
+        kernel.launches = 0
+    reset_cc_counts()
+    reset_qconv_counts()
+    refine_cuda.plan_launches = dict.fromkeys(refine_cuda.plan_launches, 0)
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(log=lambda line: print(line, flush=True), stopwatch=sw)
+    state = create_seg_state(DeepLabV3(2, 50, 1.0), seed=cfg.seed + 1, lr=cfg.seg.lr, mesh=mesh)
+    with sw.phase("alternating"):
+        run_alternating_training(state, store, cfg, mesh=mesh, stopwatch=sw,
+                                 log=lambda *a: None)
+    served = {}
+    if is_main_rank():
+        local = make_mesh(devices=visible_cards())
+        for kind in ("float32", "int8"):
+            pred = Predictor(model, size=size, max_batch=max_batch, clean=True, packed=True,
+                             mesh=local)
+            if kind == "int8":
+                pred.quantize(requests)
+            with sw.phase(f"serve_{kind}", images=max_batch + len(ragged)):
+                served[kind] = (pred(requests), pred(ragged))
+    dist.barrier()
+    torch.cuda.synchronize()
+    out["path_seconds"] = time.perf_counter() - t0
+    out["launches"] = launches = mesh_counts()
+    plans = dict(refine_cuda.plan_launches)
+    out["dryrun"] = dry
+    out["stage_seconds"] = dict(sw.times)
+    check(launches["bilateral"] == 2 * (1 + 2),
+          f"the dryrun's two CRFs (2 iterations each) launched bilateral "
+          f"{launches['bilateral']} times, not 6")
+    check(launches["refine"] == -(-len(store) // cfg.seg.batch_size)
+          and plans["v1sym"] == launches["refine"],
+          f"the sweep launched refine {launches['refine']} times, by plan {plans}")
+    if is_main_rank():
+        check(all(launches[k] > 0 for k in MESH_KERNELS), f"mesh path launches {launches}")
+        check_cc_image_plan("mesh")
+
+    # ---- the one-device Predictor on the same requests: bit-equal ----
+    if is_main_rank():
+        for kind, (full, part) in served.items():
+            one = Predictor(model, size=size, max_batch=max_batch, clean=True, packed=True,
+                            device="cuda")
+            if kind == "int8":
+                one.quantize(requests)
+            check(np.array_equal(one(requests), full) and np.array_equal(one(ragged), part),
+                  f"Predictor(mesh=) {kind} masks differ from the one-device Predictor's")
+        out["serving_bit_equal"] = ["float32", "int8"]
+
+    # ---- the sharded step against the one-device step from the same seed ----
+    # At a world of 1 the sharded step runs the one-device code: its forward
+    # (the loss, BatchNorm's statistics) must give the same bits. Its
+    # parameters may not: the backward of the bilinear resize and of the
+    # pooling add with atomics in any order, so two one-device steps differ
+    # as well; the sharded step's distance is reported beside theirs.
+    rs = np.random.default_rng(5)
+    batch = 4 * mesh.data
+    x = rs.standard_normal((batch, size, size, 3)).astype(np.float32)
+    m = rs.integers(0, 2, (batch, size, size)).astype(np.int32)
+    v = np.arange(batch) < batch - 1
+
+    def step(sharded: bool):
+        st = create_seg_state(DeepLabV3(2, 50, 1.0), seed=7,
+                              **({"mesh": mesh} if sharded else {"device": "cuda"}))
+        seed_dropout(st.model, 11)
+        inputs = (shard_batch(mesh, x, m, v) if sharded
+                  else [torch.from_numpy(a).cuda() for a in (x, m, v)])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = float(seg_train_step(st, *inputs, mesh=mesh if sharded else None))
+        return loss, (time.perf_counter() - t1) * 1e3, st.model.state_dict()
+
+    def distance(a, b, buffers: bool):
+        return max(float((a[k].double() - b[k].double()).abs().max()) for k in a
+                   if k.endswith(("running_mean", "running_var")) == buffers)
+
+    torch.backends.cudnn.deterministic = True  # cuDNN's default backward-data adds in any order
+    try:
+        step(False)  # cuDNN's plans and the allocator, before the timed steps
+        loss_s, out["sharded_step_ms"], state_s = step(True)
+        loss_1, out["one_device_step_ms"], state_1 = step(False)
+        loss_2, _, state_2 = step(False)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out["step_losses"] = [loss_s, loss_1, loss_2]
+    out["step_param_max_abs_diff"] = {"sharded_vs_one_device": distance(state_s, state_1, False),
+                                      "one_device_vs_itself": distance(state_2, state_1, False)}
+    if world == 1:
+        check(loss_s == loss_1 == loss_2 and distance(state_s, state_1, True) == 0.0,
+              f"the world-1 sharded step's forward is not the one-device step's: losses "
+              f"{out['step_losses']}, statistics {distance(state_s, state_1, True)}")
+        # Adam's first step moves a parameter by at most about lr (1e-4)
+        check(out["step_param_max_abs_diff"]["sharded_vs_one_device"] <= 2.5e-4,
+              f"parameters after the step {out['step_param_max_abs_diff']}")
+    else:  # another batch split: the global batch's statistics, summed in another order
+        check(abs(loss_s - loss_1) <= 1e-4 * abs(loss_1), f"step losses {out['step_losses']}")
+
+    # ---- refine_spatial_sharded at JAX's 1024² against the unsharded refinement ----
+    rr = np.random.default_rng(4)
+    S = rr.uniform(0.1, 1, (1, 1024, 1024, 2)).astype(np.float32)
+    S /= S.sum(-1, keepdims=True)
+    images = rr.uniform(-1, 1, (1, 1024, 1024, 3)).astype(np.float32)
+    masks = (rr.uniform(0, 1, (1, 1024, 1024)) > 0.5).astype(np.int32)
+    kw = dict(lambda_boundary=0.1, threshold=0.5, lr=1e-2, num_steps=3, sigma_color=0.1,
+              window_size=5, loss="ncut")
+    t1 = time.perf_counter()
+    rows, loss_sh = refine_spatial_sharded(*(shard_spatial(mesh, a) for a in (S, images, masks)),
+                                           mesh, **kw)
+    torch.cuda.synchronize()
+    out["spatial_ms"] = (time.perf_counter() - t1) * 1e3
+    got = torch.empty((world, *rows.shape), dtype=rows.dtype, device=rows.device)
+    dist.all_gather_into_tensor(got, rows.contiguous())
+    t1 = time.perf_counter()
+    want, loss_pl = refine_plain(*(torch.from_numpy(a).cuda() for a in (S, images, masks)), **kw)
+    torch.cuda.synchronize()
+    out["spatial_plain_ms"] = (time.perf_counter() - t1) * 1e3
+    got = got.permute(1, 0, 2, 3).reshape(want.shape)
+    out["spatial_loss"] = [float(loss_sh), float(loss_pl)]
+    out["spatial_mask_agreement"] = float((got == want).float().mean())
+    check(abs(float(loss_sh) - float(loss_pl)) <= 1e-4 * abs(float(loss_pl)),
+          f"sharded refinement loss {float(loss_sh)} against {float(loss_pl)}")
+    check(out["spatial_mask_agreement"] > 0.999,
+          f"sharded refinement masks agree on {out['spatial_mask_agreement']}")
+    return out
+
+
+def phase_mesh():
+    """The ('data', 'model') mesh under NCCL with a world of every visible
+    card: in this process on one card, else one spawned rank a card
+    (rank 0's figures). Any failure, NCCL's init included, fails the phase."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from weaklysuperviseddl_tpu_torch.parallel.mesh import init_distributed, spawn
+
+    world = torch.cuda.device_count()
+    if world > 1:
+        out = spawn(mesh_rank, world, "cuda")[0]
+    else:
+        with tempfile.TemporaryDirectory() as rendezvous:
+            init_distributed("cuda", 0, 1, f"file://{rendezvous}/store")
+            try:
+                out = mesh_rank()
+            finally:
+                dist.destroy_process_group()
+    emit("mesh", **out)
+    return out["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -3271,6 +3513,7 @@ def run_phases(seconds: dict, t_start: float) -> int:
     fusion_bf16 = timed("bf16", phase_bf16)
     backends_launches = timed("crf_backends", phase_crf_backends)
     pseudo_launches = timed("pseudo_stage", phase_pseudo_stage)
+    mesh_launches = timed("mesh", phase_mesh)
 
     from weaklysuperviseddl_tpu_torch.masks.components import label_components
     from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda, plan_for
@@ -3282,7 +3525,8 @@ def run_phases(seconds: dict, t_start: float) -> int:
                              ("serve_checkpoint", serve_ckpt_launches),
                              ("ablations", ablation_launches),
                              ("crf_backends", backends_launches),
-                             ("pseudo_stage", pseudo_launches)):
+                             ("pseudo_stage", pseudo_launches),
+                             ("mesh", mesh_launches)):
             if name in counts:
                 paths[path] = counts[name]
         return {"launches": sum(paths.values()), "launches_by_path": paths}

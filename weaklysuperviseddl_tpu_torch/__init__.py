@@ -9,9 +9,11 @@ Ported so far: the mask-serving path (``pipelines/serve.py``, int8 by
 default) with its connected-components kernel (``ops/cc.py`` +
 ``csrc/cc.cu``); the weakly-supervised alternating cycle
 (``pipelines/weakly.py``) with the mask-refinement, CRF-filter, LayerCAM and
-window-loss kernels; the supervised baseline and the ablation grid; and
+window-loss kernels; the supervised baseline and the ablation grid;
 BASNet saliency (``models/basnet.py``, ``pipelines/basnet_infer.py``,
-``train/basnet.py``).
+``train/basnet.py``); and the ('data', 'model') mesh (``parallel/``: one
+process per device under torch.distributed, data- and tensor-parallel
+training, H-sharded refinement, mesh serving, the ``dryrun`` command).
 """
 
 from weaklysuperviseddl_tpu_torch.device import resolve_device

@@ -11,6 +11,7 @@ weaklysuperviseddl_tpu/cli.py):
     python -m weaklysuperviseddl_tpu_torch client --url http://host:8765 --image photo.jpg
     python -m weaklysuperviseddl_tpu_torch basnet [--weights ./Weights/basnet.pth]
         [--num-images 10] [--dtype bfloat16] [--device cpu]
+    python -m weaklysuperviseddl_tpu_torch dryrun [--devices N] [--device cpu]
 
 ``weakly``, ``supervised``, ``ablations``, ``serve`` and ``basnet`` run on the
 card unless ``--device cpu`` is given, with TF32 off for cuDNN convolutions
@@ -28,8 +29,16 @@ snapshots every alternation; ``--resume`` continues from the latest snapshot
 (and implies ``--alternating``); ``--timings-out`` writes the per-phase
 record of the run. ``ablations`` runs the reference's grid with an untrained
 classifier (``--smoke``: its first point, one repeat) and prints the last
-summary. ``serve --checkpoint`` serves the DeepLabV3 weights of a seg state
-file the port wrote (``utils/checkpoint.save_state`` of a seg state, or a
+summary. ``weakly --mesh.data N --mesh.model M`` runs on a ('data',
+'model') mesh, one rank a device (``parallel/mesh.py``): under torchrun it
+is one rank of torchrun's group; else it starts its ranks itself, as many as
+the visible cards on the card (the mesh must take them all, as JAX's takes
+every device) and N × M on the CPU (gloo), and prints rank 0's result.
+``dryrun`` is the multi-device dryrun (``parallel/dryrun.py``) on N ranks:
+the visible cards (NCCL) by default, or with ``--device cpu`` N gloo ranks
+(default 8), the counterpart of JAX's virtual CPU mesh. ``serve
+--checkpoint`` serves the DeepLabV3 weights of a seg state file the port
+wrote (``utils/checkpoint.save_state`` of a seg state, or a
 snapshot's ``state.pt``). ``serve`` quantizes the model to int8 by default,
 as the JAX package does (``--no-int8``: float32): calibrated on the images of
 ``--calib-dir`` (read with PIL, imported only then) or, with a WARNING, on
@@ -81,12 +90,74 @@ def _device(args):
     return device
 
 
-def _weakly(args, parser, extra) -> int:
+def _device_type(args) -> str:
+    return "cpu" if args.device is not None and str(args.device).startswith("cpu") else "cuda"
+
+
+def _rank_main(argv) -> int:
+    """One spawned rank of a command: the command, in the process group."""
+    return main(argv)
+
+
+def _run_ranks(args, world: int, argv, always: bool = False) -> int | None:
+    """Run the command as a rank of a process group where it needs ``world``
+    ranks (``always``: even one): under torchrun, this process joins
+    torchrun's group (returns None: the caller goes on); else it starts
+    ``world`` ranks and returns rank 0's exit code. None where no group is
+    needed or this process is a rank already."""
+    import torch.distributed as dist
+
+    from weaklysuperviseddl_tpu_torch.parallel.mesh import init_distributed, spawn, under_torchrun
+
+    if dist.is_initialized() or (world == 1 and not always):
+        return None
+    if under_torchrun():
+        init_distributed(_device_type(args))
+        return None
+    return spawn(_rank_main, world, _device_type(args), argv)[0]
+
+
+def _weakly_world(cfg, args) -> int:
+    """The ranks a weakly run takes when it starts its own: 1 on the
+    one-device path; on the card every visible card, on the CPU data ×
+    model. Raises ValueError where the mesh does not fit them."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.parallel.mesh import make_mesh, visible_cards
+
+    m = cfg.mesh
+    if _device_type(args) == "cpu":
+        devices = [torch.device("cpu")] * (max(m.data, 1) * m.model)
+    else:
+        devices = visible_cards()
+    if len(devices) == 1 and m.model == 1 and m.data in (-1, 1):
+        return 1
+    return make_mesh(m.data, m.model, devices).size
+
+
+def _dryrun(args, argv) -> int:
+    import functools
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    world = args.devices or (8 if _device_type(args) == "cpu" else torch.cuda.device_count())
+    code = _run_ranks(args, world, argv, always=True)
+    if code is not None:
+        return code
+    _device(args)
+    dryrun_multichip(log=functools.partial(print, flush=True))
+    return 0
+
+
+def _weakly(args, parser, extra, argv) -> int:
     import dataclasses
     import time
 
     import torch
 
+    from weaklysuperviseddl_tpu_torch.parallel.mesh import is_main_rank
     from weaklysuperviseddl_tpu_torch.pipelines.weakly import (
         run_weakly_supervised,
         run_weakly_supervised_alternating,
@@ -94,6 +165,13 @@ def _weakly(args, parser, extra) -> int:
     from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch
 
     cfg = _config(args, parser, extra)
+    try:
+        world = _weakly_world(cfg, args)
+    except ValueError as e:
+        parser.error(f"weakly: {e}")
+    code = _run_ranks(args, world, argv)
+    if code is not None:
+        return code
     device = _device(args)
     sw = Stopwatch(device)
     t0 = time.perf_counter()
@@ -107,6 +185,8 @@ def _weakly(args, parser, extra) -> int:
     else:
         result = run_weakly_supervised(cfg, stopwatch=sw, device=device)
     wall = time.perf_counter() - t0
+    if not is_main_rank():
+        return 0
     if args.timings_out:
         record = {
             "cmd": "python -m weaklysuperviseddl_tpu_torch weakly"
@@ -331,14 +411,16 @@ def _client(args, parser) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="weaklysuperviseddl_tpu_torch")
     parser.add_argument("command", choices=["weakly", "supervised", "ablations", "serve",
-                                            "client", "basnet"])
+                                            "client", "basnet", "dryrun"])
     parser.add_argument("--smoke", action="store_true",
                         help="weakly, supervised: config.smoke_config(); ablations: that "
                              "config, the grid's first point, one repeat; serve: depth 18, "
                              "width 0.25, 48², max_batch 2, one self-request, then exit")
     parser.add_argument("--device", default=None,
-                        help="weakly, supervised, ablations, serve, basnet: torch device "
-                             "(default: the card; 'cpu' to run on the CPU)")
+                        help="weakly, supervised, ablations, serve, basnet, dryrun: torch "
+                             "device (default: the card; 'cpu' to run on the CPU)")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="dryrun: ranks (default: the visible cards; 8 with --device cpu)")
     parser.add_argument("--alternating", action="store_true",
                         help="weakly: run the alternating train↔refine loop after the "
                              "initial cycle")
@@ -386,9 +468,10 @@ def main(argv=None) -> int:
                         help="client: response wire format")
     parser.add_argument("--stats", action="store_true",
                         help="client: print the server's /healthz and /stats JSON")
-    args, extra = parser.parse_known_args(list(sys.argv[1:] if argv is None else argv))
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args, extra = parser.parse_known_args(argv)
     if args.command == "weakly":
-        return _weakly(args, parser, extra)
+        return _weakly(args, parser, extra, argv)
     if args.command == "supervised":
         return _supervised(args, parser, extra)
     if args.command == "ablations":
@@ -399,6 +482,8 @@ def main(argv=None) -> int:
         return _serve(args, parser)
     if args.command == "basnet":
         return _basnet(args)
+    if args.command == "dryrun":
+        return _dryrun(args, argv)
     return _client(args, parser)
 
 

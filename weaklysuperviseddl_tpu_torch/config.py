@@ -2,8 +2,8 @@
 
 The same dataclasses with the same field names and defaults as the JAX
 package, so a config recorded by either package loads in the other.
-``MeshConfig`` is kept for that reason; the port runs on one device and
-refuses any other layout (``pipelines/weakly.py``). ``RefineConfig.use_pallas``
+``MeshConfig`` places a run on a ('data', 'model') mesh as in JAX
+(``parallel/mesh.mesh_from_config``). ``RefineConfig.use_pallas``
 keeps its name: in the port it selects the CUDA kernel. ``classifier.dtype``
 and ``seg.dtype`` are the models' compute dtypes, "float32" or "bfloat16"
 (any other raises here).
@@ -144,10 +144,10 @@ class AlternatingConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device layout of the JAX package. The port runs on one device: only
-    data in {-1, 1} with model == 1 is accepted."""
+    """The ('data', 'model') mesh: batch on 'data', conv output channels on
+    'model' (one process per device)."""
 
-    data: int = -1
+    data: int = -1                   # -1 => all devices on the data axis
     model: int = 1
 
 

@@ -59,12 +59,18 @@ class Dropout(nn.Module):
     input's device. ``manual_seed`` (re)seeds it; an unseeded module, or one
     whose generator is on another device, seeds a new one with 0 at its first
     training forward. A copy or a pickle of the module leaves the generator
-    out, so it starts unseeded."""
+    out, so it starts unseeded.
+
+    ``batch_shard`` (set for a training step on a batch split over the
+    'data' axis): (D, d), the batch is shard d of D equal shards of a global
+    batch; the mask is drawn for the global batch and this shard's rows are
+    taken, so a seed gives the mask of the one-device step on that batch."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = p
         self.generator: torch.Generator | None = None
+        self.batch_shard: tuple[int, int] | None = None
 
     def __getstate__(self):
         return {**self.__dict__, "generator": None}
@@ -79,7 +85,14 @@ class Dropout(nn.Module):
             return x
         if self.generator is None or self.generator.device != x.device:
             self.manual_seed(0, x.device)
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
+        if self.batch_shard is None:
+            keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
+        else:
+            D, d = self.batch_shard
+            b = x.shape[0]
+            keep = x.new_empty((D * b, *x.shape[1:])).bernoulli_(1.0 - self.p,
+                                                                generator=self.generator)
+            keep = keep[d * b:(d + 1) * b]
         return x * keep.div_(1.0 - self.p)
 
 
@@ -137,10 +150,10 @@ class AtrousConv(Conv2d):
     def taps(self, H: int, W: int) -> list[Tap] | None:
         return atrous_taps(self.rate, H, W)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
         taps = self.taps(*x.shape[-2:])
         if taps is None:
-            return super().forward(x)
+            return super()._forward(x, bias)
         # each tap's product from compute-dtype operands, exact in float32
         # (a product of two bfloat16 values fits its mantissa), accumulated
         # in float32 as JAX's preferred_element_type=float32, and the sum
@@ -149,7 +162,7 @@ class AtrousConv(Conv2d):
         acc = torch.promote_types(dt, torch.float32)
         xs = x.to(dt).to(acc).permute(0, 2, 3, 1)                    # [B,H,W,C]
         w = self.weight.to(dt).to(acc)                               # [F,C,3,3]
-        out = xs.new_zeros(*xs.shape[:3], self.out_channels)
+        out = xs.new_zeros(*xs.shape[:3], w.shape[0])
         for t in taps:
             src = xs[:, t.oy0 + t.dy:t.oy1 + t.dy, t.ox0 + t.dx:t.ox1 + t.dx]
             out[:, t.oy0:t.oy1, t.ox0:t.ox1] += src @ w[:, :, t.iy, t.ix].t()

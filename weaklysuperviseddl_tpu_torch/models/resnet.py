@@ -31,10 +31,12 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from weaklysuperviseddl_tpu_torch.config import check_compute_dtype
+from weaklysuperviseddl_tpu_torch.parallel.collectives import all_reduce_sum
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}
@@ -66,15 +68,25 @@ def set_compute_dtype(model: nn.Module, dtype) -> nn.Module:
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` (same state-dict keys) in ``compute_dtype``: input,
     kernel and bias are cast to it, as flax's ``nn.Conv(dtype=...)`` does
-    with its float32 parameters; None is ``nn.Conv2d``'s forward."""
+    with its float32 parameters; None is ``nn.Conv2d``'s forward. ``tp``
+    (set by ``parallel/mesh.shard_params_tp``): the layer holds and computes
+    its slice of the output channels on the 'model' axis."""
 
     compute_dtype: torch.dtype | None = None
+    tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return self._forward(x, self.bias)
+        # this rank's output channels, gathered; the bias is replicated, as in JAX
+        y = self.tp.gather(self._forward(self.tp.enter(x), None), 1)
+        return y if self.bias is None else y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+
+    def _forward(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
         dt = self.compute_dtype
         if dt is None:
-            return super().forward(x)
-        bias = None if self.bias is None else self.bias.to(dt)
+            return self._conv_forward(x, self.weight, bias)
+        bias = None if bias is None else bias.to(dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
@@ -102,27 +114,52 @@ class BatchNorm2d(nn.BatchNorm2d):
     with its running statistics and leaves them untouched even in training
     mode; gradients still reach its affine weight and bias.
 
+    ``data_group`` (set for a training step on a batch split over the 'data'
+    axis): the statistics in training are the whole batch's, every rank's
+    rows of it, as they are in JAX's one global program (padded rows count,
+    as there): the mean and then the squared deviations are summed over the
+    group, differentiably, so each rank's gradient takes the other ranks'
+    rows into account; the running statistics then equal the one-device
+    run's.
+
     The statistics and the normalisation are float32 whatever the input's
     dtype; the output is ``compute_dtype`` where one is set (flax's
     ``nn.BatchNorm(dtype=...)``), else the input's."""
 
     frozen = False
     compute_dtype: torch.dtype | None = None
+    data_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.frozen:
             return self._out(F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                           self.bias, False, 0.0, self.eps))
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        dims = [0] + list(range(2, x.ndim))
+        if self.data_group is not None:
+            y, mean, var = self._global_batch_norm(x.float(), dims)
+        else:
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            with torch.no_grad():
+                xf = x.float()
+                mean = xf.mean(dim=dims)
+                var = xf.var(dim=dims, unbiased=False)
         with torch.no_grad():
-            dims = [0] + list(range(2, x.ndim))
-            xf = x.float()
-            mean = xf.mean(dim=dims)
-            var = xf.var(dim=dims, unbiased=False)
-            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
-            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean.detach())
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var.detach())
             self.num_batches_tracked.add_(1)
         return self._out(y)
+
+    def _global_batch_norm(self, x: torch.Tensor, dims: list[int]):
+        """(normalised x, mean, biased variance) over the group's batch."""
+        count = x.numel() // x.shape[1] * dist.get_world_size(self.data_group)
+        view = [1, -1] + [1] * (x.ndim - 2)
+        mean = all_reduce_sum(x.sum(dim=dims), self.data_group) / count
+        d = x - mean.view(view)
+        var = all_reduce_sum((d * d).sum(dim=dims), self.data_group) / count
+        y = d * torch.rsqrt(var + self.eps).view(view)
+        if self.affine:
+            y = y * self.weight.view(view) + self.bias.view(view)
+        return y, mean, var
 
     def _out(self, y: torch.Tensor) -> torch.Tensor:
         return y if self.compute_dtype is None else y.to(self.compute_dtype)

@@ -17,12 +17,19 @@ JAX's int8 PTQ: its sites, scales and calibration file), calibrated on images
 or loaded from a calibration file of either package; the rest of the program
 is unchanged.
 
+``Predictor(mesh=)`` serves data-parallel on a local mesh
+(``parallel/mesh.make_mesh(devices=...)``), as JAX's mesh serving, one
+process: the model (or its int8 rewrite, quantized once) is replicated to
+the device at each index of the 'data' axis, each batch is split into equal
+row blocks, one a device, and the masks come back in order.
+
 ``MaskServer`` and ``MaskClient`` carry the reference's HTTP protocol over
-unchanged. Not ported yet: mesh serving (``Predictor(mesh=...)``).
+unchanged.
 """
 
 from __future__ import annotations
 
+import copy
 import io
 
 import numpy as np
@@ -80,10 +87,23 @@ class Predictor:
     identical inputs through the same bucket are deterministic.
 
     ``quantized`` is the int8 model that serves in place of ``model`` once
-    ``quantize`` has run (None: the float model serves)."""
+    ``quantize`` has run (None: the float model serves).
+
+    ``mesh``: a local ``parallel/mesh.Mesh`` (instead of ``device``); the
+    batch is split over its 'data' axis, so ``max_batch`` must be a multiple
+    of it and every bucket is rounded up to one."""
 
     def __init__(self, model: torch.nn.Module, size: int = 256, max_batch: int = 16,
-                 clean: bool = False, packed: bool = False, device=None):
+                 clean: bool = False, packed: bool = False, device=None, mesh=None):
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass a device or a mesh, not both")
+            if mesh.distributed:
+                raise ValueError("Predictor serves on a local mesh "
+                                 "(make_mesh(devices=...)); it needs no process group")
+            if max_batch % mesh.data:
+                raise ValueError(f"max_batch {max_batch} not divisible by data axis {mesh.data}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.size = size
@@ -91,6 +111,8 @@ class Predictor:
         self.clean = clean
         self.packed = packed  # bit-pack masks on the device, unpack on the host
         self.quantized = None  # set by quantize()
+        self.mesh = mesh
+        self._replicas: list = []  # (device, model) of the serving model, made on first use
         if packed:
             nc = getattr(model, "num_classes", 2)
             if nc != 2:
@@ -98,10 +120,24 @@ class Predictor:
                     f"packed=True is a BINARY-mask wire format; model has {nc} classes "
                     "(class ids >= 2 cannot round-trip a bitmap)")
 
+    def _serving_replicas(self) -> list:
+        """(device, model) for each block of a batch, of the model that
+        serves (``quantized`` or ``model``): one on this device, or one at
+        each index of the mesh's data axis (a copy on each other device)."""
+        model = self.model if self.quantized is None else self.quantized
+        if not self._replicas or self._replicas[0][1] is not model:
+            devices = [self.device] if self.mesh is None else self.mesh.data_devices
+            self._replicas = [(d, model if d == self.device else copy.deepcopy(model).to(d))
+                              for d in devices]
+        return self._replicas
+
     def _bucket(self, n: int) -> int:
         """Smallest serving bucket >= n: powers of two up to max_batch, plus
-        max_batch itself."""
-        return min(1 << max(0, n - 1).bit_length(), self.max_batch)
+        max_batch itself; on a mesh, rounded up to a data-axis multiple."""
+        b = min(1 << max(0, n - 1).bit_length(), self.max_batch)
+        if self.mesh is not None:
+            b = -(-b // self.mesh.data) * self.mesh.data
+        return b
 
     def buckets(self) -> list[int]:
         return sorted({self._bucket(2**i) for i in range(self.max_batch.bit_length() + 1)
@@ -163,18 +199,24 @@ class Predictor:
         return report
 
     def _dispatch(self, images: torch.Tensor):
-        """Enqueue one bucket-sized batch; returns (host tensor, event or None)."""
-        model = self.model if self.quantized is None else self.quantized
-        if self.device.type != "cuda":
-            return predict_masks(model, images, self.size, self.clean, self.packed), None
-        with torch.cuda.device(self.device):
-            x = images.pin_memory().to(self.device, non_blocking=True)
-            out = predict_masks(model, x, self.size, self.clean, self.packed)
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        return host, done
+        """Enqueue one bucket-sized batch, a block of rows on each replica's
+        device; returns (host tensor, the replicas' events)."""
+        replicas = self._serving_replicas()
+        outs, done = [], []
+        for (dev, model), block in zip(replicas, images.chunk(len(replicas))):
+            if dev.type != "cuda":
+                outs.append(predict_masks(model, block, self.size, self.clean, self.packed))
+                continue
+            with torch.cuda.device(dev):
+                x = block.pin_memory().to(dev, non_blocking=True)
+                out = predict_masks(model, x, self.size, self.clean, self.packed)
+                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+            outs.append(host)
+            done.append(event)
+        return (outs[0] if len(outs) == 1 else torch.cat(outs)), done
 
     def dispatch_async(self, images: np.ndarray):
         """Pad to the serving bucket and dispatch WITHOUT waiting: returns
@@ -191,8 +233,8 @@ class Predictor:
         """Wait for a ``dispatch_async`` result; unpack bitmaps and strip the
         bucket padding."""
         host, done = pending
-        if done is not None:
-            done.synchronize()
+        for event in done:
+            event.synchronize()
         out = host.numpy()[:n]
         return np.unpackbits(out, axis=-1) if self.packed else out.copy()
 

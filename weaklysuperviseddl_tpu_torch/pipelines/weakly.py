@@ -3,8 +3,18 @@ then the alternating train ↔ refine loop (port of
 weaklysuperviseddl_tpu/pipelines/weakly.py; ref AlternatingDirectionCutLoss.py:468-821).
 
 Every entry point runs on the card unless ``device="cpu"`` is given, and
-raises without a card. The port runs on one device: a ``MeshConfig`` other
-than data ∈ {-1, 1}, model == 1 raises. ``mask.use_crf`` runs the dense CRF
+raises without a card. ``cfg.mesh`` places the run as JAX does
+(``parallel/mesh.mesh_from_config``): on one device with no model axis it is
+the one-device path; else every rank of a process group (one per device,
+NCCL on the card, gloo on the CPU) runs these functions together.
+DeepLabV3 trains on the ('data', 'model') mesh (data-parallel batches, conv
+output channels on 'model') and evaluates in lockstep. The stages JAX runs
+unsharded, the classifier, the CAMs and the pseudo-masks (and their CRF),
+run on rank 0 and the others take the store by broadcast: cuDNN's backward
+can give two runs different bits, and ranks that thresholded their own CAMs
+could train on different masks. The refinement sweeps' result is rank 0's
+too (``train/alternating.py``). Logs, snapshots and the timings are rank
+0's. ``mask.use_crf`` runs the dense CRF
 with any of JAX's bilateral backends, "attention", "subsampled", "grid",
 "lattice" or "rff" (the exact filter of the first two is a CUDA kernel on
 the card); ``seg.loss_fn`` is "cross_entropy" or "lovasz_softmax";
@@ -33,12 +43,19 @@ import torch
 from weaklysuperviseddl_tpu_torch.config import ExperimentConfig
 from weaklysuperviseddl_tpu_torch.data.dataset import download_data, load_split_data
 from weaklysuperviseddl_tpu_torch.data.loader import batches, stack_dataset
+from weaklysuperviseddl_tpu_torch.data.mask_store import MaskStore
 from weaklysuperviseddl_tpu_torch.device import resolve_device
 from weaklysuperviseddl_tpu_torch.masks.densecrf import BACKENDS
 from weaklysuperviseddl_tpu_torch.masks.pseudo import generate_pseudo_masks
 from weaklysuperviseddl_tpu_torch.models.classifier import CamClassifier
 from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
 from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
+from weaklysuperviseddl_tpu_torch.parallel.mesh import (
+    is_main_rank,
+    local_state_dict,
+    mesh_from_config,
+    replicate_tree,
+)
 from weaklysuperviseddl_tpu_torch.train.alternating import run_alternating_training
 from weaklysuperviseddl_tpu_torch.train.classifier import train_fc_only
 from weaklysuperviseddl_tpu_torch.train.segmentation import (
@@ -61,10 +78,7 @@ class WeaklySupervisedResult:
 
 
 def check_supported(cfg: ExperimentConfig):
-    """Raise on the parts of the config the port does not run yet."""
-    if cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1:
-        raise ValueError(f"the port runs on one device; MeshConfig {cfg.mesh} needs "
-                         "parallel/mesh.py, which is not ported yet")
+    """Raise on the parts of the config the port does not run."""
     if cfg.seg.loss_fn not in LOSSES:
         raise ValueError(f"unknown seg.loss_fn {cfg.seg.loss_fn!r}; expected one of {LOSSES}")
     if cfg.mask.use_crf and cfg.mask.crf_backend not in BACKENDS:
@@ -116,25 +130,26 @@ def load_test_arrays(cfg: ExperimentConfig, device):
             torch.from_numpy(test_trimaps).to(device))
 
 
-def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch | None = None,
-                          device=None, classifier_weights: dict | None = None,
-                          seg_weights: dict | None = None) -> WeaklySupervisedResult:
-    """The weakly-supervised cycle at the configured scale: trained models,
-    the pseudo-mask store and the eval metrics. ``stopwatch`` times each
-    stage of this code path in place. ``classifier_weights`` and
-    ``seg_weights`` (state dicts) replace the seeded initial weights of the
-    classifier and of DeepLabV3."""
-    check_supported(cfg)
-    dev = resolve_device(device)
-    sw = stopwatch if stopwatch is not None else Stopwatch(dev)
-    d = cfg.data
-    with sw.phase("data", images=d.synthetic_size):
-        train_ds, val_ds = load_split_data(
-            d.root, train_ratio=d.train_ratio, seed=d.seed, synthetic_size=d.synthetic_size,
-            image_size=d.image_size, num_classes=d.num_classes)
-        test_arrays = load_test_arrays(cfg, dev)
+def _quiet(*args, **kwargs):
+    pass
 
-    # --- stage 1: frozen-backbone classifier ---------------------------------
+
+def _placement(cfg: ExperimentConfig, device, log):
+    """(device, mesh, log) of a run: this rank's device and the mesh of
+    ``cfg.mesh`` (None on the one-device path); ranks other than 0 log
+    nothing."""
+    dev = resolve_device(device)
+    mesh = mesh_from_config(cfg.mesh, dev)
+    if mesh is None:
+        return dev, None, log
+    mesh.require_distributed(f"MeshConfig {cfg.mesh}")
+    return mesh.device, mesh, log if is_main_rank() else _quiet
+
+
+def _pseudo_mask_stages(cfg: ExperimentConfig, dev, sw: Stopwatch, log, train_ds, val_ds,
+                        classifier_weights: dict | None):
+    """Stages 1-3, the classifier and its pseudo-masks: (classifier, store)."""
+    d = cfg.data
     model = build_classifier(cfg, dev, classifier_weights)
     log("Starting training...")
     with sw.phase("classifier_fc_training", images=len(train_ds) * cfg.classifier.epochs):
@@ -146,8 +161,6 @@ def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch
             epochs=cfg.classifier.epochs, lr=cfg.classifier.lr, num_classes=d.num_classes,
             image_size=d.image_size, interpolation=d.interpolation, log=log)
     log(" Classifier trained.")
-
-    # --- stage 2+3: LayerCAM → pseudo-masks ----------------------------------
     with sw.phase("pseudo_mask_generation", images=min(cfg.mask.max_images, len(train_ds))):
         store = generate_pseudo_masks(
             batches(train_ds, d.batch_size, pad_to_full=True), model,
@@ -157,17 +170,60 @@ def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch
             max_images=cfg.mask.max_images, store_dir=cfg.mask.store_dir,
             use_crf=cfg.mask.use_crf, crf_kwargs=crf_kwargs(cfg))
     log(f"Pseudo masks generated: {len(store)}")
+    return model, store
+
+
+def _replicated_store(mesh, store: MaskStore | None) -> MaskStore:
+    """Rank 0's store on every rank (the others get an in-memory copy)."""
+    arrays = replicate_tree(mesh, store.as_arrays() if is_main_rank() else None)
+    if is_main_rank():
+        return store
+    replica = MaskStore()
+    for image, mask, key in zip(*arrays):
+        replica.put(key, image, mask)
+    return replica
+
+
+def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch | None = None,
+                          device=None, classifier_weights: dict | None = None,
+                          seg_weights: dict | None = None) -> WeaklySupervisedResult:
+    """The weakly-supervised cycle at the configured scale: trained models,
+    the pseudo-mask store and the eval metrics. ``stopwatch`` times each
+    stage of this code path in place. ``classifier_weights`` and
+    ``seg_weights`` (state dicts) replace the seeded initial weights of the
+    classifier and of DeepLabV3. On a mesh the classifier is rank 0's (None
+    on the others)."""
+    check_supported(cfg)
+    dev, mesh, log = _placement(cfg, device, log)
+    sw = stopwatch if stopwatch is not None else Stopwatch(dev)
+    d = cfg.data
+    with sw.phase("data", images=d.synthetic_size):
+        train_ds, val_ds = load_split_data(
+            d.root, train_ratio=d.train_ratio, seed=d.seed, synthetic_size=d.synthetic_size,
+            image_size=d.image_size, num_classes=d.num_classes)
+        test_arrays = load_test_arrays(cfg, dev)
+
+    # --- stage 1: frozen-backbone classifier; stage 2+3: LayerCAM → pseudo-masks
+    model = store = None
+    if is_main_rank():
+        model, store = _pseudo_mask_stages(cfg, dev, sw, log, train_ds, val_ds,
+                                           classifier_weights)
+    if mesh is not None:
+        with sw.phase("store_broadcast"):
+            store = _replicated_store(mesh, store)
 
     # --- stage 4: DeepLabV3 on the pseudo-masks -------------------------------
     seg_state = create_seg_state(build_seg_model(cfg, cfg.seg.dtype), seed=cfg.seed + 1,
-                                 lr=cfg.seg.lr, device=dev)
+                                 lr=cfg.seg.lr, device=dev, mesh=mesh)
     if seg_weights is not None:
-        seg_state.model.load_state_dict(seg_weights, strict=True)
+        seg_state.model.load_state_dict(local_state_dict(seg_state.model, seg_weights),
+                                        strict=True)
     images, masks, _ = store.as_arrays()
     with sw.phase("seg_training", images=len(store) * cfg.seg.epochs):
         seg_state, final_loss = train_segmentation_model(
             seg_state, images, masks, loss_fn=cfg.seg.loss_fn, num_epochs=cfg.seg.epochs,
-            batch_size=cfg.seg.batch_size, seg_size=d.seg_size, seed=cfg.seed, log=log)
+            batch_size=cfg.seg.batch_size, seg_size=d.seg_size, seed=cfg.seed, log=log,
+            mesh=mesh)
 
     # --- stage 5: eval against the true trimaps ------------------------------
     with sw.phase("eval", images=int(test_arrays[0].shape[0])):
@@ -203,22 +259,25 @@ def run_weakly_supervised_alternating(cfg: ExperimentConfig, checkpoint_dir: str
         raise ValueError("resume=True restores the weights of the latest snapshot; "
                          "initial weights apply to a fresh run only")
     check_supported(cfg)
-    dev = resolve_device(device)
-    sw = stopwatch if stopwatch is not None else Stopwatch(dev)
+    sw = stopwatch if stopwatch is not None else Stopwatch(resolve_device(device))
     d = cfg.data
     start_iteration = 0
     if resume:
+        dev, mesh, log = _placement(cfg, device, log)
         seg_state = create_seg_state(build_seg_model(cfg, cfg.seg.dtype), seed=cfg.seed + 1,
-                                     lr=cfg.seg.lr, device=dev)
+                                     lr=cfg.seg.lr, device=dev, mesh=mesh)
         seg_state, store, start_iteration = restore_alternation(checkpoint_dir, seg_state)
         with sw.phase("data", images=0):
             test_arrays = load_test_arrays(cfg, dev)
         log(f"Resumed from {checkpoint_dir} at alternation {start_iteration}")
         result = WeaklySupervisedResult(None, seg_state, store, {}, test_arrays)
     else:
-        result = run_weakly_supervised(cfg, log=log, stopwatch=sw, device=dev,
+        result = run_weakly_supervised(cfg, log=log, stopwatch=sw, device=device,
                                        classifier_weights=classifier_weights,
                                        seg_weights=seg_weights)
+        mesh = result.seg_state.mesh
+        if not is_main_rank():
+            log = _quiet
     test_arrays = result.test_arrays
 
     def eval_fn(state):
@@ -230,7 +289,8 @@ def run_weakly_supervised_alternating(cfg: ExperimentConfig, checkpoint_dir: str
     state, store = run_alternating_training(
         result.seg_state, result.mask_store, cfg, eval_fn=eval_fn,
         eval_images=int(test_arrays[0].shape[0]), checkpoint_dir=checkpoint_dir,
-        start_iteration=start_iteration, stopwatch=sw, trajectory=trajectory, log=log)
+        start_iteration=start_iteration, stopwatch=sw, trajectory=trajectory, log=log,
+        mesh=mesh)
     iou, acc = eval_fn(state)
     result.seg_state, result.mask_store = state, store
     result.metrics.update({"alt_iou": iou, "alt_acc": acc, "trajectory": trajectory})

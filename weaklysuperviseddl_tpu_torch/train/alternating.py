@@ -13,12 +13,19 @@ refinement's S is float32, as in the JAX package.
 With a ``checkpoint_dir``, each alternation ends with a snapshot of the train
 state and the store (``utils/checkpoint.save_alternation``);
 ``start_iteration`` continues a run from one (``restore_alternation``).
+
+On a mesh (``mesh``), the training is data- and tensor-parallel
+(``train_segmentation_model(mesh=)``) and the eval runs on every rank in
+lockstep. Every rank runs the sweeps, whose model forward needs the whole
+'model' axis, and then takes rank 0's masks by broadcast, so the sweeps'
+result is rank 0's on every rank, as JAX's unsharded sweep is one result.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed
 
 from weaklysuperviseddl_tpu_torch.config import AlternatingConfig, ExperimentConfig, RefineConfig
 from weaklysuperviseddl_tpu_torch.data.mask_store import MaskStore
@@ -101,13 +108,13 @@ def run_alternating_training(state: SegTrainState, store: MaskStore, cfg: Experi
                              eval_fn=None, eval_images: int = 0,
                              checkpoint_dir: str | None = None, start_iteration: int = 0,
                              stopwatch: Stopwatch | None = None,
-                             trajectory: list | None = None, log=print):
+                             trajectory: list | None = None, log=print, mesh=None):
     """Outer alternating loop over alternations ``start_iteration`` to
     ``num_alternations - 1``. ``eval_fn(state) -> (iou, acc)`` runs once per
     alternation; with ``trajectory`` a list, each alternation's IoU/acc is
     appended. With ``checkpoint_dir``, each alternation is snapshotted there
     after its masks are written back. ``stopwatch`` times the phases of this
-    loop."""
+    loop. ``mesh``: the mesh the state was laid out on."""
     sw = stopwatch if stopwatch is not None else Stopwatch()
     alt: AlternatingConfig = cfg.alternating
     seg_size = cfg.data.seg_size
@@ -123,7 +130,7 @@ def run_alternating_training(state: SegTrainState, store: MaskStore, cfg: Experi
                 state, dev_images, dev_masks, loss_fn=cfg.seg.loss_fn,
                 num_epochs=alt.epochs_per_round, batch_size=cfg.seg.batch_size,
                 seg_size=seg_size, seed=cfg.seed + iteration, run_id=f"alt{iteration}",
-                log=log)
+                log=log, mesh=mesh)
         if eval_fn is not None:
             with sw.phase("eval", images=eval_images):
                 avg_iou, avg_acc = eval_fn(state)
@@ -135,6 +142,8 @@ def run_alternating_training(state: SegTrainState, store: MaskStore, cfg: Experi
         with sw.phase("refinement_sweeps", images=n_store * alt.refine_repeats):
             for _ in range(alt.refine_repeats):
                 sweep(dev_masks, dev_images, idx_table)
+            if mesh is not None:
+                torch.distributed.broadcast(dev_masks, src=0)
         with sw.phase("store_sync", images=n_store):
             masks_np = dev_masks.cpu().numpy()
             for j, k in enumerate(keys):

@@ -12,11 +12,17 @@ skipped step, so these classes keep their own). After
 ``MAX_CONSECUTIVE_ERRORS`` non-finite steps in a row the update passes
 through unprotected, so a run that has diverged for good surfaces as NaN
 parameters instead of silently training nothing.
+
+On a mesh (``group``: every rank of it) the decision is the whole mesh's:
+each rank flags its own gradients, which under tensor parallelism are only
+its shards of some of them, and a flag on any rank skips the step on every
+rank, so the ranks' parameters never part.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed
 
 B1, B2, EPS = 0.9, 0.999, 1e-8      # optax.adam's defaults
 MAX_CONSECUTIVE_ERRORS = 100        # optax.apply_if_finite's escape hatch
@@ -81,8 +87,9 @@ class Adam:
 
 
 class GuardedAdam(Adam):
-    def __init__(self, params, lr: float = 1e-4):
+    def __init__(self, params, lr: float = 1e-4, group=None):
         super().__init__(params, lr)
+        self.group = group         # a mesh's ranks decide together
         self.notfinite_count = 0   # consecutive non-finite steps
         self.total_notfinite = 0   # lifetime non-finite steps
 
@@ -92,6 +99,10 @@ class GuardedAdam(Adam):
         grads = self._grads()
         with torch.no_grad():
             total = torch.cat([g.reshape(-1).float() for g in grads]).sum()
+            if self.group is not None:
+                flags = (~torch.isfinite(total)).float()
+                torch.distributed.all_reduce(flags, group=self.group)
+                total = torch.where(flags > 0, torch.nan, 0.0)
         finite = bool(torch.isfinite(total))
         apply = finite or self.notfinite_count >= MAX_CONSECUTIVE_ERRORS
         self.notfinite_count = 0 if finite else self.notfinite_count + 1

@@ -16,6 +16,11 @@ for the binary masks of the cycle, "v1" otherwise. ``use_pallas=False``
 forces the plain version, as it forces XLA in the JAX package. The kernel
 takes any H×W, so there is no size fallback.
 
+``refine_from_soft_predictions_sharded`` is the same refinement with each
+image split along H over a mesh axis (``parallel/spatial.py``), for images
+too large for one device; like JAX's, it runs no kernel (``use_pallas`` is
+dropped).
+
 ``refine_pseudo_masks`` is the model-facing form (the reference's
 ``refine_pseudo_mask`` signature, :709): S is the eval-mode model's softmax,
 without gradient.
@@ -51,6 +56,17 @@ def refine_from_soft_predictions(
         return refine_cuda(S.float().contiguous(), images.float().contiguous(),
                            masks.contiguous(), **kw)
     return refine_plain(S, images, masks, **kw)
+
+
+def refine_from_soft_predictions_sharded(S, images, masks, mesh, axis: str = "data", **kwargs):
+    """``refine_from_soft_predictions`` on this rank's rows of S, the images
+    and the masks, split along H over ``axis`` of ``mesh``
+    (``parallel/spatial.refine_spatial_sharded``). Returns (this rank's rows
+    of the refined masks, the whole batch's mean loss)."""
+    from weaklysuperviseddl_tpu_torch.parallel.spatial import refine_spatial_sharded
+
+    kwargs.pop("use_pallas", None)  # the sharded path has no kernel, as in JAX
+    return refine_spatial_sharded(S, images, masks, mesh, axis=axis, **kwargs)
 
 
 def refine_pseudo_masks(model: torch.nn.Module, images: torch.Tensor, masks: torch.Tensor,

@@ -20,6 +20,16 @@ through ``dropout_seed``, a fixed integer mix, so ``seed`` alone fixes a run
 in any process, as the JAX package's keys (``PRNGKey(seed + 1)``, split per
 epoch, folded with the step) do; the bits differ from JAX's threefry.
 
+On a ('data', 'model') mesh (``parallel/mesh.py``), as JAX lays it out:
+``create_seg_state(mesh=)`` shards the conv output channels on 'model'
+(``shard_params_tp``; Adam's moments follow the weights) and the guard
+decides over the whole mesh; ``train_segmentation_model(mesh=)`` splits the
+dataset over 'data' (wrap-around padding to D·n_local rows, [D, n_local]
+per-shard permutations each epoch, a ragged per-shard tail repeating its last
+index with weight 0), and each step is the one-device step on the global
+batch (``seg_train_step(mesh=)``); ``evaluate_segmentation_sharded`` sums the
+ranks' confusion counters with one all-reduce.
+
 Evaluation (``evaluate_segmentation_dataset``, and ``evaluate_segmentation``
 over a loader) is the reference's ``evaluate_model``: predict at
 ``seg_size``, nearest-resize the trimaps to ``eval_size`` and the predictions
@@ -34,7 +44,9 @@ every counter.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
@@ -43,11 +55,18 @@ from weaklysuperviseddl_tpu_torch.data.preprocess import normalize_images as _no
 from weaklysuperviseddl_tpu_torch.data.preprocess import preprocess_batch
 from weaklysuperviseddl_tpu_torch.losses.basic import per_example_nll
 from weaklysuperviseddl_tpu_torch.losses.lovasz import lovasz_softmax_per_image
-from weaklysuperviseddl_tpu_torch.models.deeplabv3 import seed_dropout
-from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
+from weaklysuperviseddl_tpu_torch.models.deeplabv3 import Dropout, seed_dropout
+from weaklysuperviseddl_tpu_torch.models.resnet import BatchNorm2d, init_weights
 from weaklysuperviseddl_tpu_torch.ops.resize import resize_nearest
+from weaklysuperviseddl_tpu_torch.parallel.collectives import all_reduce_value
+from weaklysuperviseddl_tpu_torch.parallel.mesh import shard_batch, shard_params_tp
 from weaklysuperviseddl_tpu_torch.train.guard import GuardedAdam
-from weaklysuperviseddl_tpu_torch.utils.metrics import compute_iou_and_acc, per_class_iou
+from weaklysuperviseddl_tpu_torch.utils.metrics import (
+    binary_confusion_counts,
+    compute_iou_and_acc,
+    finish_iou_and_acc,
+    per_class_iou,
+)
 
 
 LOSSES = ("cross_entropy", "lovasz_softmax")
@@ -73,33 +92,86 @@ def dropout_seed(seed: int, epoch: int, step: int) -> int:
 
 @dataclass
 class SegTrainState:
-    """The model (parameters and BatchNorm statistics) and its optimizer."""
+    """The model (parameters and BatchNorm statistics) and its optimizer;
+    ``mesh``: the mesh ``create_seg_state`` laid them out on, or None."""
 
     model: torch.nn.Module
     optimizer: GuardedAdam
     step: int = 0
+    mesh: Any = None
 
 
 def create_seg_state(model: torch.nn.Module, seed: int, lr: float = 1e-4,
-                     device=None) -> SegTrainState:
+                     device=None, mesh=None) -> SegTrainState:
     """Seeded random weights (``init_weights``) on ``device`` and Adam behind
-    the non-finite-gradient guard."""
+    the non-finite-gradient guard. ``mesh`` (a ``parallel/mesh.Mesh`` with
+    process groups): the weights on this rank's device in JAX's tensor-
+    parallel layout, and the guard's decision taken over the whole mesh."""
     init_weights(model, torch.Generator().manual_seed(seed))
+    group = None
+    if mesh is not None:
+        mesh.require_distributed("create_seg_state")
+        device = mesh.device
+        group = mesh.group() if mesh.size > 1 else None
     if device is not None:
         model.to(device)
-    return SegTrainState(model=model, optimizer=GuardedAdam(model.parameters(), lr=lr))
+    if mesh is not None:
+        shard_params_tp(mesh, model)
+    return SegTrainState(model=model, optimizer=GuardedAdam(model.parameters(), lr=lr,
+                                                            group=group), mesh=mesh)
+
+
+@contextlib.contextmanager
+def _batch_shard(model: torch.nn.Module, mesh, group):
+    """While a step's forward runs on shard d of D of a global batch: every
+    BatchNorm takes statistics over ``group`` and every dropout draws the
+    global batch's mask."""
+    layers = [m for m in model.modules() if isinstance(m, (BatchNorm2d, Dropout))]
+    for m in layers:
+        if isinstance(m, BatchNorm2d):
+            m.data_group = group
+        else:
+            m.batch_shard = (mesh.data, mesh.index("data"))
+    try:
+        yield
+    finally:
+        for m in layers:
+            if isinstance(m, BatchNorm2d):
+                m.data_group = None
+            else:
+                m.batch_shard = None
+
+
+@torch.no_grad()
+def _sum_gradients(params, group):
+    """Every parameter's gradient summed over ``group``, in one all-reduce."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    torch.distributed.all_reduce(flat, group=group)
+    for p, g in zip(params, flat.split([g.numel() for g in grads])):
+        p.grad = g.view_as(p)
 
 
 def seg_train_step(state: SegTrainState, images: torch.Tensor, masks: torch.Tensor,
-                   valid: torch.Tensor, loss_fn: str = "cross_entropy") -> torch.Tensor:
+                   valid: torch.Tensor, loss_fn: str = "cross_entropy",
+                   mesh=None) -> torch.Tensor:
     """One step on normalised [B,H,W,3] images and [B,H,W] integer masks;
     ``valid`` [B] masks padded rows out of the loss. Returns the loss (0-dim,
-    on the device)."""
+    on the device).
+
+    ``mesh``: the batch is this rank's shard of a global batch split over
+    the mesh's 'data' axis. BatchNorm then takes the global batch's
+    statistics, the dropout its rows of the global mask, the loss is
+    Σ_global(per-example loss · valid) / max(Σ_global valid, 1) (every rank
+    returns it), and the gradients are summed over the axis: the step is the
+    one-device step on the global batch."""
     if loss_fn not in LOSSES:
         raise ValueError(f"unknown loss_fn {loss_fn!r}; expected one of {LOSSES}")
     model = state.model
     model.train()
-    logits = model(images.permute(0, 3, 1, 2))                      # [B,C,H,W]
+    group = None if mesh is None or mesh.data == 1 else mesh.group("data")
+    with _batch_shard(model, mesh, group) if group is not None else contextlib.nullcontext():
+        logits = model(images.permute(0, 3, 1, 2))                  # [B,C,H,W]
     masks_c = masks.clamp(0, 1)                                     # ref :100 clamp(max=1)
     if loss_fn == "lovasz_softmax":
         # per image, so that padded rows can be weighted out
@@ -108,9 +180,13 @@ def seg_train_step(state: SegTrainState, images: torch.Tensor, masks: torch.Tens
     else:
         per = per_example_nll(logits, masks_c, dim=1).mean(dim=(1, 2))  # [B]
     w = valid.float()
-    loss = (per * w).sum() / w.sum().clamp(min=1.0)
+    count = w.sum() if group is None else all_reduce_value(w.sum(), group)
+    loss = (per * w).sum() / count.clamp(min=1.0)
     state.optimizer.zero_grad()
     loss.backward()
+    if group is not None:
+        _sum_gradients(state.optimizer.params, group)
+        loss = all_reduce_value(loss, group)
     state.optimizer.step()
     state.step += 1
     return loss.detach()
@@ -132,33 +208,64 @@ def _prep(raw: torch.Tensor, m: torch.Tensor, seg_size: int):
 def train_segmentation_model(state: SegTrainState, images, masks,
                              loss_fn: str = "cross_entropy", num_epochs: int = 10,
                              batch_size: int = 4, seg_size: int = 256, seed: int = 0,
-                             run_id: str = "default", eval_fn=None, log=print):
+                             run_id: str = "default", eval_fn=None, log=print, mesh=None):
     """Epoch loop over an in-memory pseudo-mask dataset (images [N,H,W,3]
     uint8, masks [N,H,W] {0,1}; numpy or tensors). The per-epoch order is
     ``np.random.default_rng(seed).permutation`` as in the JAX package, and the
     dropout is seeded before step t of epoch e with ``dropout_seed(seed + 1,
     e, t)``. The printout follows SegmentationModel.py:116-120. Returns
-    (state, the last epoch's summed loss)."""
+    (state, the last epoch's summed loss).
+
+    ``mesh``: JAX's data-parallel layout. Each rank takes shard d of the
+    dataset wrapped around to D·n_local rows (n_local = ceil(N / D)), and
+    each epoch draws D permutations of n_local from the one generator (every
+    rank draws them all, and walks row d); step t takes each shard's t-th
+    block of batch/D indices, a short last block repeating its last index
+    with weight 0. A batch the data axis does not divide is left unsharded
+    (every rank runs it whole), with a line in the log, as in JAX."""
     dev = next(state.model.parameters()).device
     images = _as_device_tensor(images, dev)
     masks = _as_device_tensor(masks, dev)
     n = images.shape[0]
+    D = 1 if mesh is None else mesh.data
+    dp = D > 1
+    if mesh is not None:
+        mesh.require_distributed("train_segmentation_model")
+    if dp and batch_size % D:
+        log(f"[Run {run_id}] batch {batch_size} not divisible by data axis {D}; "
+            "inputs left unsharded")
+        dp = False
+    if dp:
+        n_local = -(-n // D)
+        d = mesh.index("data")
+        rows = (torch.arange(d * n_local, (d + 1) * n_local) % n).to(dev)  # wrap-around padding
+        images, masks = images[rows], masks[rows]
+        local_batch = batch_size // D
+        T = -(-n_local // local_batch)
+    else:
+        T = -(-n // batch_size)
     rng = np.random.default_rng(seed)
     final_loss = 0.0
-    T = (n + batch_size - 1) // batch_size
     for epoch in range(num_epochs):
-        order = rng.permutation(n)
+        if dp:
+            orders = np.stack([rng.permutation(n_local) for _ in range(D)])
+        else:
+            order = rng.permutation(n)
         total = torch.zeros((), device=dev)
         for t in range(T):
-            idx = order[t * batch_size:(t + 1) * batch_size]
-            nv = len(idx)
-            if nv < batch_size:
-                idx = np.concatenate([idx, np.repeat(idx[-1], batch_size - nv)])
+            if dp:
+                idx = orders[d, t * local_batch:(t + 1) * local_batch]
+                nv, b = len(idx), local_batch
+            else:
+                idx = order[t * batch_size:(t + 1) * batch_size]
+                nv, b = len(idx), batch_size
+            if nv < b:
+                idx = np.concatenate([idx, np.repeat(idx[-1], b - nv)])
             idx_t = torch.from_numpy(idx).to(dev)
             x, m = _prep(images[idx_t], masks[idx_t], seg_size)
-            valid = torch.arange(batch_size, device=dev) < nv
+            valid = torch.arange(b, device=dev) < nv
             seed_dropout(state.model, dropout_seed(seed + 1, epoch, t))
-            total = total + seg_train_step(state, x, m, valid, loss_fn)
+            total = total + seg_train_step(state, x, m, valid, loss_fn, mesh if dp else None)
         final_loss = float(total)
         log(f"[Run {run_id}] Epoch {epoch + 1}/{num_epochs}, Loss: {final_loss:.4f}")
         if eval_fn is not None:
@@ -238,6 +345,24 @@ def evaluate_segmentation_dataset(model: torch.nn.Module, images_u8, trimaps,
     if log:
         log(f"\n Model Evaluation on Test Set: IoU = {avg_iou:.4f} | Acc = {avg_acc:.4f}")
     return avg_iou, avg_acc
+
+
+@torch.no_grad()
+def evaluate_segmentation_sharded(model: torch.nn.Module, images, true_fg, mesh):
+    """Binary (IoU, accuracy) of the model's argmax on normalised [N,H,W,3]
+    ``images`` against [N,H,W] {0,1} ``true_fg`` (numpy or tensors, the same
+    on every rank): each rank predicts its rows on the 'data' axis and the
+    confusion counters are summed over the axis in one all-reduce."""
+    model.eval()
+    x, truth = shard_batch(mesh, images, true_fg)
+    preds = model(x.permute(0, 3, 1, 2)).argmax(dim=1)
+    c = binary_confusion_counts(preds, truth)
+    if mesh.data > 1:
+        keys = list(c)
+        summed = all_reduce_value(torch.stack([c[k].long() for k in keys]), mesh.group("data"))
+        c = dict(zip(keys, summed))
+    iou, acc = finish_iou_and_acc(c)
+    return float(iou), float(acc)
 
 
 @torch.no_grad()

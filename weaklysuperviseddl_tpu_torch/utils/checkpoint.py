@@ -12,8 +12,12 @@ optimizer state, step count or resume. Here:
     ``alt_NNN/masks.npz`` (``MaskStore.save_arrays``), written into
     ``alt_NNN.tmp`` and renamed once both are on disk.
 
-The JAX package writes orbax directories and PNG mask directories; neither
-package reads the other's snapshots.
+On a mesh (``SegTrainState.mesh``), a snapshot has the one-device layout:
+every rank makes the sharded weights and their Adam moments whole (a
+collective), rank 0 writes, and the others wait at a barrier;
+``restore_alternation`` reads the whole state on every rank and cuts it to
+the rank's layout. The JAX package writes orbax directories and PNG mask
+directories; neither package reads the other's snapshots.
 """
 
 from __future__ import annotations
@@ -22,8 +26,15 @@ import os
 import shutil
 
 import torch
+import torch.distributed as dist
 
 from weaklysuperviseddl_tpu_torch.data.mask_store import MaskStore
+from weaklysuperviseddl_tpu_torch.parallel.mesh import (
+    full_state_dict,
+    is_main_rank,
+    local_state_dict,
+    tp_parameters,
+)
 
 STATE_FILE = "state.pt"
 MASKS_FILE = "masks.npz"
@@ -90,18 +101,34 @@ def restore_state(path: str, template_tree):
     return tree
 
 
+def _moments(state, tree: dict, cut) -> dict:
+    """The optimizer's state with each moment of a sharded weight passed
+    through ``cut(tp, tensor)``."""
+    tp = tp_parameters(state.model)
+    if not tp:
+        return tree
+    names = [n for n, _ in state.model.named_parameters()]
+    return {**tree, **{key: [cut(tp[n], t) if n in tp else t for n, t in zip(names, tree[key])]
+                       for key in ("m", "v")}}
+
+
 def seg_state_tree(state) -> dict:
     """``SegTrainState`` → a tree for ``save_state``: the model's state dict
-    (parameters and BatchNorm statistics), the optimizer's state, ``step``."""
-    return {"model": dict(state.model.state_dict()), "optimizer": state.optimizer.state_dict(),
+    (parameters and BatchNorm statistics), the optimizer's state, ``step``,
+    in the one-device layout (on a mesh with a model axis every rank calls
+    it: the sharded tensors are gathered)."""
+    return {"model": full_state_dict(state.model),
+            "optimizer": _moments(state, state.optimizer.state_dict(), lambda tp, t: tp.full(t)),
             "step": int(state.step)}
 
 
 def load_seg_state(state, tree):
     """Copy a ``seg_state_tree`` into ``state``'s model (in place: the
-    optimizer keeps the same parameter objects) and then its optimizer."""
-    state.model.load_state_dict(tree["model"], strict=True)
-    state.optimizer.load_state_dict(tree["optimizer"])
+    optimizer keeps the same parameter objects) and then its optimizer, each
+    cut to the model's layout."""
+    state.model.load_state_dict(local_state_dict(state.model, tree["model"]), strict=True)
+    state.optimizer.load_state_dict(_moments(state, tree["optimizer"],
+                                             lambda tp, t: tp.local(t)))
     state.step = int(tree["step"])
     return state
 
@@ -180,15 +207,19 @@ def save_alternation(root: str, iteration: int, state, store: MaskStore) -> str:
     takes for a whole one."""
     root = os.path.abspath(root)
     alt_dir = os.path.join(root, f"alt_{iteration:03d}")
-    tmp_dir = alt_dir + ".tmp"
-    if os.path.exists(tmp_dir):
-        shutil.rmtree(tmp_dir)
-    os.makedirs(tmp_dir)
-    save_state(os.path.join(tmp_dir, STATE_FILE), seg_state_tree(state))
-    store.save_arrays(os.path.join(tmp_dir, MASKS_FILE))
-    _fsync_dir(tmp_dir)
-    if os.path.exists(alt_dir):
-        shutil.rmtree(alt_dir)
-    os.rename(tmp_dir, alt_dir)
-    _fsync_dir(root)
+    tree = seg_state_tree(state)
+    if is_main_rank():
+        tmp_dir = alt_dir + ".tmp"
+        if os.path.exists(tmp_dir):
+            shutil.rmtree(tmp_dir)
+        os.makedirs(tmp_dir)
+        save_state(os.path.join(tmp_dir, STATE_FILE), tree)
+        store.save_arrays(os.path.join(tmp_dir, MASKS_FILE))
+        _fsync_dir(tmp_dir)
+        if os.path.exists(alt_dir):
+            shutil.rmtree(alt_dir)
+        os.rename(tmp_dir, alt_dir)
+        _fsync_dir(root)
+    if state.mesh is not None and state.mesh.distributed:
+        dist.barrier()
     return alt_dir

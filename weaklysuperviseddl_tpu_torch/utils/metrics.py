@@ -29,6 +29,27 @@ def compute_iou_and_acc(pred_mask: torch.Tensor, true_mask: torch.Tensor):
     return iou, acc
 
 
+def binary_confusion_counts(pred_mask: torch.Tensor, true_mask: torch.Tensor) -> dict:
+    """Raw counters of binary IoU and accuracy (foreground ``> 0``), which
+    add across batches and ranks; ``finish_iou_and_acc`` turns them into the
+    metrics."""
+    pred_fg = pred_mask > 0
+    true_fg = true_mask > 0
+    return {
+        "intersection": (pred_fg & true_fg).sum(),
+        "union": (pred_fg | true_fg).sum(),
+        "correct": (pred_mask == true_mask).sum(),
+        "total": torch.tensor(true_mask.numel(), device=true_mask.device),
+    }
+
+
+def finish_iou_and_acc(counts: dict):
+    """(IoU, accuracy) of summed ``binary_confusion_counts``."""
+    iou = counts["intersection"] / (counts["union"] + 1e-8)
+    acc = counts["correct"] / counts["total"]
+    return iou, acc
+
+
 def classification_counts(preds: torch.Tensor, labels: torch.Tensor, num_classes: int,
                           valid: torch.Tensor | None = None):
     """Per-class TP/FP/FN counters + correct/total (ref ClassificationModel.py:116-139).
