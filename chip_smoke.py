@@ -203,7 +203,24 @@ Phases, one JSON line each:
                arrays); download_data(limit=256) from a Pet-layout directory
                the phase writes, through batches with and without prefetch
                into LayerCAM: img/s from disk.
- 21. mesh    - the ('data', 'model') mesh under NCCL with a world of every
+ 21. compat  - the reference-named surface (weaklysuperviseddl_tpu_torch/compat/)
+               at full width, the reference's flow: FrozenResNetCAM (ResNet-50
+               dilated, 37 classes, 224²), train_fc_only (1 epoch, 32
+               synthetic pets), LayerCAMGenerator(["layer3", "layer4"]),
+               generate_pseudo_masks over 64 pets into a directory of the
+               checkout (K2), apply_dense_crf on one 224² image with the
+               reference's CRF and keep_largest on its mask (K3, K2),
+               CAMGenerator.generate_bg_cam, SegmentationModel's
+               train_segmentation_model (DeepLabV3-R50 at 256², 1 epoch on
+               those 64 PNG pairs), refine_pseudo_mask at the path's lr and at
+               0.2 (K1); K1, K2 and K3 counted from 0 over the flow (3 K2, 6
+               K3, 2 K1 v1sym; K5 off the path: fusion "auto", as in JAX) and
+               each step's seconds. Then each compat output against the core
+               call it wraps on the same tensors (bit-equal; LayerCAM within
+               1e-5) and the card against the CPU: the pseudo-masks of 4 pets,
+               the CRF mask (>= 0.999) and the refined mask at lr 0.2 (>=
+               0.995).
+ 22. mesh    - the ('data', 'model') mesh under NCCL with a world of every
                visible card (in this process on one card; else one spawned
                rank a card). The path, every count reset just before and
                read just after: the port's dryrun (JAX's dryrun_multichip
@@ -240,6 +257,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import shutil
 import statistics
@@ -2399,6 +2417,202 @@ def phase_ablations():
     return launches
 
 
+def phase_compat():
+    """The reference-named surface (compat/) at full width, the reference's
+    flow step by step; each step's seconds. Then each compat output against
+    the core function it wraps on the same tensors, and the card against
+    the CPU."""
+    import copy
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.cam.cam import cam_bg
+    from weaklysuperviseddl_tpu_torch.cam.layercam import layercam
+    from weaklysuperviseddl_tpu_torch.compat import AlternatingDirectionCutLoss as CL
+    from weaklysuperviseddl_tpu_torch.compat import PsuedoMasks, SegmentationModel
+    from weaklysuperviseddl_tpu_torch.compat.ClassificationModel import (
+        FrozenResNetCAM,
+        evaluate_classification,
+        train_fc_only,
+    )
+    from weaklysuperviseddl_tpu_torch.compat.LayerCAM import LayerCAMGenerator
+    from weaklysuperviseddl_tpu_torch.compat.SegmentationDataset import PseudoSegmentationDataset
+    from weaklysuperviseddl_tpu_torch.data.dataset import download_data
+    from weaklysuperviseddl_tpu_torch.data.loader import batches
+    from weaklysuperviseddl_tpu_torch.masks import densecrf
+    from weaklysuperviseddl_tpu_torch.masks.components import keep_largest_batch
+    from weaklysuperviseddl_tpu_torch.masks.pseudo import cam_to_mask
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cuda
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
+    from weaklysuperviseddl_tpu_torch.train import classifier as core_classifier
+    from weaklysuperviseddl_tpu_torch.train.refine import refine_from_soft_predictions
+
+    quiet = lambda *_a, **_k: None  # noqa: E731
+    root = CKPT_ROOT / "compat"
+    root.mkdir(parents=True, exist_ok=True)
+    train = download_data(None, split="trainval", synthetic_size=64, image_size=224, seed=0)
+    fc_pets = download_data(None, split="trainval", synthetic_size=32, image_size=224, seed=1)
+    steps, out = {}, {}
+
+    @contextlib.contextmanager
+    def step(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+
+    # ---- the main path: K1, K2 and K3 counts from 0, the flow, counts read after ----
+    refine_cuda.launches = 0
+    refine_cuda.plan_launches = dict.fromkeys(refine_cuda.plan_launches, 0)
+    gaussian_filter_cuda.launches = 0
+    reset_cc_counts()
+    t_path = time.perf_counter()
+    with step("FrozenResNetCAM"):
+        model = FrozenResNetCAM(num_classes=37, depth=50, width_multiplier=1.0, seed=0,
+                                device="cuda")
+    with step("train_fc_only"):
+        fc_before = model.fc.weight.detach().clone()
+        train_fc_only(model, lambda: batches(fc_pets, 32, pad_to_full=True), device="cuda",
+                      epochs=1, image_size=224, log=quiet)
+        out["accuracy"] = evaluate_classification(model, lambda: batches(fc_pets, 32),
+                                                  device="cuda", image_size=224, log=quiet)
+    gen = LayerCAMGenerator(model, ["layer3", "layer4"])
+    with step("generate_pseudo_masks"):
+        img_dir, mask_dir = PsuedoMasks.generate_pseudo_masks(
+            batches(train, 32, pad_to_full=True), gen, cam_thresh=0.3, alpha=1.0,
+            keep_largest_masks=True, run_id="compat", root=str(root), log=quiet)
+    image0, label0 = train.images[0], int(train.labels[0])
+    with step("apply_dense_crf"):
+        cam0 = gen.generate(image0, class_idx=[label0])[0]
+        cam0_t = torch.where(cam0 < 0.3, torch.zeros_like(cam0), cam0)
+        crf_mask = CL.apply_dense_crf(image0, cam0_t, **CRF_REFERENCE)
+        crf_largest = PsuedoMasks.keep_largest(torch.from_numpy(crf_mask).cuda())
+    with step("CAMGenerator.generate_bg_cam"):
+        m_bg, max_obj = CL.CAMGenerator(model).generate_bg_cam(image0, [label0], alpha=2.0)
+    with step("train_segmentation_model"):
+        handle, seg_loss = SegmentationModel.train_segmentation_model(
+            run_id="compat", lr=1e-4, num_epochs=1, batch_size=4, root=str(root),
+            seg_size=256, log=quiet, device="cuda")
+    ds = PseudoSegmentationDataset(img_dir, mask_dir, transform=True)
+    seg_image, seg_mask = ds[0]
+    refined = {}
+    for lr in (1e-2, 0.2):
+        with step(f"refine_pseudo_mask_lr{lr}"):
+            refined[lr] = CL.refine_pseudo_mask(handle, seg_image, seg_mask, lr=lr)
+    path_s = time.perf_counter() - t_path
+    launches = {"refine": refine_cuda.launches, "cc_label": label_components_cuda.launches,
+                "bilateral": gaussian_filter_cuda.launches}
+    plans = dict(refine_cuda.plan_launches)
+    check(all(v > 0 for v in launches.values()), f"compat path launches {launches}")
+    check(launches["bilateral"] == 1 + CRF_REFERENCE["n_iters"],
+          f"bilateral launched {launches['bilateral']} times, expected 6")
+    check(launches["refine"] == 2 and plans["v1sym"] == 2,
+          f"refine launched {launches['refine']} times by plan {plans}")
+    check(launches["cc_label"] == 3, f"cc_label launched {launches['cc_label']} times, expected "
+          "2 (64 pets in batches of 32) + 1 (keep_largest)")
+    check_cc_image_plan("compat")
+
+    # ---- each compat output against the core function it wraps ----
+    t_checks = time.perf_counter()
+    masks_png = SegmentationModel.read_pseudo_masks(str(root), "compat")
+    names = sorted(os.listdir(mask_dir), key=lambda f: int(f.split(".")[0]))
+    check(names == [f"{i}.png" for i in range(64)]
+          and sorted(os.listdir(img_dir)) == sorted(names), f"pseudo-mask files {names[:3]}...")
+    order = np.array([int(f.split(".")[0]) for f in sorted(os.listdir(mask_dir))])
+    raw = torch.from_numpy(np.stack(train.images[:32])).cuda()
+    labels = torch.from_numpy(train.labels[:32]).cuda()
+    cams = layercam(model, raw.float(), labels.long(), target_layers=("layer3", "layer4"),
+                    output_size=224)[0]
+    compat_cams = gen.generate(raw, class_idx=labels)
+    cam_err = float((cams - compat_cams).abs().max())
+    check(cam_err < 1e-5, f"generate against layercam: {cam_err}")
+    core_masks = cam_to_mask(cams, 0.3, True).cpu().numpy()
+    first = order < 32
+    mask_agree = float((masks_png[1][first] == core_masks[order[first]]).mean())
+    check(mask_agree >= 0.9999, f"generate_pseudo_masks against cam_to_mask: {mask_agree}")
+    core_crf = densecrf.apply_dense_crf(torch.from_numpy(image0).cuda()[None].float(),
+                                        cam0_t[None], **CRF_REFERENCE)[0].cpu().numpy()
+    check(np.array_equal(crf_mask, core_crf), "apply_dense_crf against densecrf.apply_dense_crf")
+    check(np.array_equal(crf_largest, keep_largest_batch(torch.from_numpy(crf_mask).cuda()[None])
+                         .cpu().numpy()[0]), "keep_largest against keep_largest_batch")
+    valid = torch.zeros((1, 37), device="cuda")
+    valid[0, label0] = 1.0
+    core_bg = cam_bg(model, torch.from_numpy(image0).cuda()[None].float(), valid, alpha=2.0)
+    bg_err = max(float((a[0] - b).abs().max()) for a, b in zip(core_bg, (m_bg, max_obj)))
+    check(bg_err < 1e-6, f"generate_bg_cam against cam_bg: {bg_err}")
+    check(np.isfinite(seg_loss) and not torch.equal(fc_before, model.fc.weight),
+          f"seg loss {seg_loss}; the fc trained")
+    x = torch.from_numpy(seg_image).cuda()[None]
+    with torch.no_grad():
+        handle.module.eval()
+        logits = handle.module(x.permute(0, 3, 1, 2))
+    check(torch.equal(handle(seg_image)["out"], logits), "SegModelHandle against the module")
+    S = torch.softmax(logits.permute(0, 2, 3, 1), dim=-1).contiguous()
+    m01 = torch.from_numpy((seg_mask == 255).astype(np.int32)).cuda()[None]
+    for lr, got in refined.items():
+        want, _ = refine_from_soft_predictions(S, x.contiguous(), m01, lr=lr)
+        check(torch.equal(got, want[0].float()), f"refine_pseudo_mask lr {lr} against core")
+    moved = {str(lr): float((r.cpu().numpy() != (seg_mask == 255)).mean())
+             for lr, r in refined.items()}
+    check(moved["0.01"] == 0.0, f"lr 1e-2 moved {moved['0.01']} of the pixels")
+    acc_core = core_classifier.evaluate_classification(model, batches(fc_pets, 32),
+                                                       image_size=224, log=quiet)
+    check(acc_core == out["accuracy"], f"evaluate_classification {out['accuracy']} vs core "
+          f"{acc_core}")
+    t_checks = time.perf_counter() - t_checks
+
+    # ---- the card against the CPU (each check's host seconds) ----
+    cpu_s = {}
+    t_cpu = time.perf_counter()
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_masks = cam_to_mask(LayerCAMGenerator(cpu_model, ["layer3", "layer4"]).generate(
+        np.stack(train.images[:4]), class_idx=train.labels[:4]), 0.3, True).numpy()
+    pick = [int(np.where(order == i)[0][0]) for i in range(4)]
+    cpu_pseudo = float((masks_png[1][pick] == cpu_masks).mean())
+    cpu_s["pseudo_masks"] = time.perf_counter() - t_cpu
+    # the reference CRF on a 112² crop of the image, the one of 9 (offsets 0,
+    # 56, 112 a side) whose card mask is nearest half foreground: the exact
+    # filter on the host costs about 16 times less than at 224²
+    t_cpu = time.perf_counter()
+    crop_at = min(((y, x) for y in (0, 56, 112) for x in (0, 56, 112)),
+                  key=lambda o: abs(crf_mask[o[0]:o[0] + 112, o[1]:o[1] + 112].mean() - 0.5))
+    crop = (slice(crop_at[0], crop_at[0] + 112), slice(crop_at[1], crop_at[1] + 112))
+    crop_image, crop_cam = np.ascontiguousarray(image0[crop]), cam0_t[crop].contiguous()
+    card_crf = CL.apply_dense_crf(crop_image, crop_cam, **CRF_REFERENCE)
+    cpu_crf = CL.apply_dense_crf(crop_image, crop_cam.cpu(), **CRF_REFERENCE)
+    cpu_crf_agree = float((cpu_crf == card_crf).mean())
+    cpu_s["crf_112"] = time.perf_counter() - t_cpu
+    t_cpu = time.perf_counter()
+    cpu_handle = SegmentationModel.SegModelHandle(copy.deepcopy(handle.module).cpu(),
+                                                  handle.state, 256)
+    cpu_refined = CL.refine_pseudo_mask(cpu_handle, seg_image, seg_mask, lr=0.2)
+    cpu_refine = float((cpu_refined == refined[0.2].cpu()).float().mean())
+    cpu_s["refine"] = time.perf_counter() - t_cpu
+    check(cpu_pseudo >= 0.995, f"pseudo-masks card vs CPU {cpu_pseudo}")
+    check(cpu_crf_agree >= 0.999, f"CRF mask card vs CPU {cpu_crf_agree}")
+    check(cpu_refine >= 0.995, f"refined mask card vs CPU {cpu_refine}")
+    shutil.rmtree(root, ignore_errors=True)
+    emit("compat", entry="weaklysuperviseddl_tpu_torch.compat (the reference's names)",
+         models="FrozenResNetCAM ResNet-50 dilated (37 classes, 224², seed 0); DeepLabV3-ResNet50 "
+                "os8 (256², batch 4, seed 0)",
+         cuts={"train_fc_only": "1 epoch on 32 synthetic pets (batch 32)",
+               "generate_pseudo_masks": "64 synthetic pets (batch 32)",
+               "train_segmentation_model": "1 epoch on those 64 pseudo-masks"},
+         crf_kwargs=CRF_REFERENCE, seconds_by_step=steps, path_s=path_s,
+         checks_s=t_checks, cpu_checks_s=cpu_s,
+         fusion="auto (K5 off this path, as in the JAX package)",
+         accuracy_macro_f1=out["accuracy"], seg_final_loss=seg_loss,
+         generate_vs_layercam_max_abs=cam_err, pseudo_masks_vs_cam_to_mask=mask_agree,
+         bg_cam_vs_cam_bg_max_abs=bg_err, refine_moved_frac=moved,
+         card_vs_cpu={"pseudo_masks_4_pets": cpu_pseudo, "crf_mask_112_crop": cpu_crf_agree,
+                      "crf_crop_at": list(crop_at), "crf_crop_fg": float(card_crf.mean()),
+                      "refined_mask_lr0.2": cpu_refine},
+         launches_main_path=launches, refine_plans=plans)
+    return launches
+
+
 # kinds of kernel in a BASNet forward, by a key in the profiler's name, the
 # first kind that matches (cuDNN's BatchNorm kernels carry "cudnn" too)
 BASNET_KINDS = (("batch_norm", ("batch_norm", "bn_fw", "bn_bw")),
@@ -3513,6 +3727,7 @@ def run_phases(seconds: dict, t_start: float) -> int:
     fusion_bf16 = timed("bf16", phase_bf16)
     backends_launches = timed("crf_backends", phase_crf_backends)
     pseudo_launches = timed("pseudo_stage", phase_pseudo_stage)
+    compat_launches = timed("compat", phase_compat)
     mesh_launches = timed("mesh", phase_mesh)
 
     from weaklysuperviseddl_tpu_torch.masks.components import label_components
@@ -3524,6 +3739,7 @@ def run_phases(seconds: dict, t_start: float) -> int:
         for path, counts in (("weakly_resume", resume_launches),
                              ("serve_checkpoint", serve_ckpt_launches),
                              ("ablations", ablation_launches),
+                             ("compat", compat_launches),
                              ("crf_backends", backends_launches),
                              ("pseudo_stage", pseudo_launches),
                              ("mesh", mesh_launches)):

@@ -731,3 +731,38 @@ def test_basnet_pngs_without_pil_raise_before_the_forward(cuda, monkeypatch, tmp
     _, iou, acc = run_inference(ds, model=model, num_images=2, output_folder=None,
                                 log=lambda *_: None)
     assert calls and 0.0 <= iou <= 1.0 and 0.0 <= acc <= 1.0
+
+
+def test_compat_surface_launches_its_kernels(cuda):
+    """The reference-named keep_largest, apply_dense_crf and
+    refine_pseudo_mask launch K2, K3 and K1 on CUDA inputs (or a model on
+    the card), and give the CPU's masks."""
+    from weaklysuperviseddl_tpu_torch.compat import AlternatingDirectionCutLoss as CL
+    from weaklysuperviseddl_tpu_torch.compat import PsuedoMasks, SegmentationModel
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cuda
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
+
+    rng = np.random.default_rng(0)
+    mask = torch.from_numpy(synthetic.family("blobs", 1, (40, 48), seed=1)[0])
+    before = label_components_cuda.launches
+    got = PsuedoMasks.keep_largest(mask.to(cuda))
+    assert label_components_cuda.launches == before + 1
+    np.testing.assert_array_equal(got, PsuedoMasks.keep_largest(mask))
+
+    yy, xx = np.mgrid[0:40, 0:48] / 40
+    cam = torch.from_numpy(np.exp(-((yy - 0.5) ** 2 + (xx - 0.6) ** 2) / 0.05)).float()
+    img = rng.integers(0, 256, (40, 48, 3), dtype=np.uint8)
+    before = gaussian_filter_cuda.launches
+    got = CL.apply_dense_crf(img, cam.to(cuda))
+    assert gaussian_filter_cuda.launches == before + 6
+    assert (got == CL.apply_dense_crf(img, cam, device="cpu")).mean() >= 0.999
+
+    handle, _ = SegmentationModel.initialize_model(2, device=cuda, backbone_depth=18,
+                                                   width_multiplier=0.25, input_size=32)
+    image = rng.standard_normal((3, 32, 32)).astype(np.float32)
+    mask255 = (rng.uniform(size=(32, 32)) > 0.5).astype(np.uint8) * 255
+    before = refine_cuda.launches
+    got = CL.refine_pseudo_mask(handle, image, mask255, lr=0.2, num_steps=5)
+    assert refine_cuda.launches == before + 1 and got.is_cuda
+    want = CL.refine_pseudo_mask(handle.to("cpu"), image, mask255, lr=0.2, num_steps=5)
+    assert (got.cpu() == want).float().mean() >= 0.995

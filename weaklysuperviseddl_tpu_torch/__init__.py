@@ -11,9 +11,11 @@ default) with its connected-components kernel (``ops/cc.py`` +
 (``pipelines/weakly.py``) with the mask-refinement, CRF-filter, LayerCAM and
 window-loss kernels; the supervised baseline and the ablation grid;
 BASNet saliency (``models/basnet.py``, ``pipelines/basnet_infer.py``,
-``train/basnet.py``); and the ('data', 'model') mesh (``parallel/``: one
+``train/basnet.py``); the ('data', 'model') mesh (``parallel/``: one
 process per device under torch.distributed, data- and tensor-parallel
-training, H-sharded refinement, mesh serving, the ``dryrun`` command).
+training, H-sharded refinement, mesh serving, the ``dryrun`` command); and
+the reference-named entry points (``compat/``) over classic CAM
+(``cam/cam.py``).
 """
 
 from weaklysuperviseddl_tpu_torch.device import resolve_device

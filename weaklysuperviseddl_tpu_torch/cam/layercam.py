@@ -14,6 +14,8 @@ resolves to XLA), then either
     ``clamp(0) ** alpha``;
 each layer's CAM is upsampled bilinearly (align_corners=False) to
 ``output_size`` before the mean over layers.
+``layercam_bg`` turns it into the background map of the CutLoss script,
+m_bg = 1 − clamp(1 − cam, 0)^alpha.
 
 In the classifier's compute dtype: the logits and the target activations
 are in it, and so are the gradients (the selected-class one-hot in the
@@ -66,3 +68,14 @@ def layercam(model, images: torch.Tensor, class_idx: torch.Tensor | None,
         if alpha_mode == "final":
             final = final.clamp(min=0.0) ** alpha
     return final.float(), logits.detach()
+
+
+def layercam_bg(model, images: torch.Tensor, class_idx: torch.Tensor | None,
+                target_layers=("layer2", "layer3", "layer4"), alpha: float = 2.0,
+                output_size: int = 224):
+    """Background and foreground CAMs (ref AlternatingDirectionCutLoss.py:296-318):
+    LayerCAM with alpha 1 per layer, then m_bg = 1 − clamp(1 − cam, 0)^alpha.
+    Returns (m_bg [B,S,S], cam [B,S,S])."""
+    cam, _ = layercam(model, images, class_idx, target_layers=target_layers, alpha=1.0,
+                      alpha_mode="per_layer", output_size=output_size)
+    return 1.0 - (1.0 - cam).clamp(min=0.0) ** alpha, cam

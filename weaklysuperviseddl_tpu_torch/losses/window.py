@@ -10,7 +10,8 @@ plain version (``ops/refine.py``).
   * ``boundary_loss``: the affinity adds ``−(dx²+dy²)/(2σ_s²)``; the class
     difference is summed over classes before weighting; mean over offsets.
 
-Both reflect-pad (``jnp.pad(mode="reflect")``: the edge is not repeated).
+Both reflect-pad (``jnp.pad(mode="reflect")``: the edge is not repeated), as
+does ``window_affinities``, the boundary loss's affinity map of every offset.
 Layouts are the JAX package's: [B,H,W,C] predictions, [B,H,W,3] images. The
 ``*_per_image`` forms return one value per image ([B]), which is what the
 refinement needs (its λ is per image); the public functions average them over
@@ -46,24 +47,39 @@ def affinity_exponent(color_diff: torch.Tensor, dy: int, dx: int, sigma_color: f
     return expo
 
 
+def _affinities(images: torch.Tensor, window_size: int, sigma_color: float,
+                sigma_space: float | None):
+    """Yields the affinity [B,H,W] of each offset, in ``window_offsets`` order."""
+    _, H, W, _ = images.shape
+    pad = window_size // 2
+    img_p = _reflect_nchw(images, pad)
+    img_c = img_p[:, :, pad:pad + H, pad:pad + W]
+    for dy, dx in window_offsets(window_size):
+        d_img = img_c - img_p[:, :, pad + dy:pad + dy + H, pad + dx:pad + dx + W]
+        color_diff = (d_img[:, 0] * d_img[:, 0] + d_img[:, 1] * d_img[:, 1]
+                      + d_img[:, 2] * d_img[:, 2])
+        yield torch.exp(affinity_exponent(color_diff, dy, dx, sigma_color, sigma_space))
+
+
 def _window_terms(probs: torch.Tensor, images: torch.Tensor, window_size: int,
                   sigma_color: float, sigma_space: float | None):
     """Yields (affinity [B,H,W], squared class differences [B,C,H,W]) per offset."""
-    B, H, W, C = probs.shape
+    _, H, W, _ = probs.shape
     pad = window_size // 2
     probs_p = _reflect_nchw(probs, pad)
-    img_p = _reflect_nchw(images, pad)
     probs_c = probs_p[:, :, pad:pad + H, pad:pad + W]
-    img_c = img_p[:, :, pad:pad + H, pad:pad + W]
-    for dy, dx in window_offsets(window_size):
-        sl = (slice(None), slice(None), slice(pad + dy, pad + dy + H),
-              slice(pad + dx, pad + dx + W))
-        d_img = img_c - img_p[sl]
-        color_diff = (d_img[:, 0] * d_img[:, 0] + d_img[:, 1] * d_img[:, 1]
-                      + d_img[:, 2] * d_img[:, 2])
-        aff = torch.exp(affinity_exponent(color_diff, dy, dx, sigma_color, sigma_space))
-        d = probs_c - probs_p[sl]
+    affs = _affinities(images, window_size, sigma_color, sigma_space)
+    for (dy, dx), aff in zip(window_offsets(window_size), affs):
+        d = probs_c - probs_p[:, :, pad + dy:pad + dy + H, pad + dx:pad + dx + W]
         yield aff, d * d
+
+
+def window_affinities(images: torch.Tensor, sigma_color: float = 0.1, sigma_space: float = 5.0,
+                      window_size: int = 5) -> torch.Tensor:
+    """[B,H,W,3] images → the affinity maps [B,K,H,W] of the K = win²−1
+    offsets in ``window_offsets`` order, colour and spatial terms together
+    (ref compute_affinities, AlternatingDirectionCutLoss.py:612-637)."""
+    return torch.stack(list(_affinities(images, window_size, sigma_color, sigma_space)), dim=1)
 
 
 def local_normalized_cut_per_image(preds: torch.Tensor, images: torch.Tensor,

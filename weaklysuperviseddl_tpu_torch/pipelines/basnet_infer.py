@@ -37,8 +37,8 @@ def build_basnet(weights_path: str | None = None, device=None,
     read with ``weights_only=True``), else random weights drawn from
     ``generator`` (``init_weights``; seed 0 when None). ``dtype``: the
     compute dtype, "float32" or "bfloat16"."""
-    model = BASNet(n_channels=3, n_classes=1, dtype=dtype)
     dev = resolve_device(device)
+    model = BASNet(n_channels=3, n_classes=1, dtype=dtype)
     if weights_path and os.path.exists(weights_path):
         model.load_state_dict(torch.load(weights_path, map_location="cpu", weights_only=True),
                               strict=True)

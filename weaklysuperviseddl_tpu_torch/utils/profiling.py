@@ -1,5 +1,10 @@
-"""Per-phase wall-clock timing (port of ``Stopwatch`` from
-weaklysuperviseddl_tpu/utils/profiling.py).
+"""Timing and tracing (port of weaklysuperviseddl_tpu/utils/profiling.py).
+
+* ``Stopwatch``        — per-phase seconds and image counts, img/s.
+* ``force_ready``      — waits for the device work behind some tensors.
+* ``warmup_device``    — times a device's first launch.
+* ``trace(dir)``       — a torch.profiler Chrome trace of a block.
+* ``log_compile_time`` — reports a function's first-call seconds.
 
 PyTorch returns before the card finishes, so on a CUDA device each phase ends
 with ``torch.cuda.synchronize()``: a phase's seconds cover the device work it
@@ -9,10 +14,34 @@ launched.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 
 import torch
+
+from weaklysuperviseddl_tpu_torch.device import resolve_device
+
+
+def _tensors(value):
+    """The tensors in nested tuples, lists and dicts."""
+    if isinstance(value, torch.Tensor):
+        yield value
+    elif isinstance(value, dict):
+        for v in value.values():
+            yield from _tensors(v)
+    elif isinstance(value, (tuple, list)):
+        for v in value:
+            yield from _tensors(v)
+
+
+def force_ready(value):
+    """Wait until the device work behind every tensor in ``value`` (a tensor
+    or nested tuples, lists and dicts of them) has finished: one
+    ``torch.cuda.synchronize`` per CUDA device among them. Returns ``value``."""
+    for dev in {t.device for t in _tensors(value) if t.is_cuda}:
+        torch.cuda.synchronize(dev)
+    return value
 
 
 class Stopwatch:
@@ -71,3 +100,55 @@ class Stopwatch:
 
     def first_call_s(self, name: str) -> float | None:
         return self.calls[name][0][0] if self.calls[name] else None
+
+
+def warmup_device(device=None, warn_after_s: float = 60.0, log=print) -> float:
+    """Pay a device's first-launch cost in a phase of its own and return its
+    seconds: CUDA's context and first kernel on a card (``device=None`` is
+    the card, ``device.resolve_device``), one op on the CPU. Logs the
+    device's name, and a warning when it took more than ``warn_after_s``
+    (another process holding the card, or a driver that loads slowly), so a
+    long stall before a pipeline's first phase is named."""
+    dev = resolve_device(device)
+    log(f"device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else dev}")
+    t0 = time.perf_counter()
+    force_ready(torch.ones((), device=dev) + 1)
+    dt = time.perf_counter() - t0
+    if dt > warn_after_s:
+        log(f"[profile] device warmup took {dt:.0f}s: the first launch waited for the "
+            "device (another process on it, or a slow driver load), not pipeline cost")
+    return dt
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Trace the block with torch.profiler (the CPU, and CUDA where there is
+    a card) and write its Chrome trace to ``log_dir/trace.json``, for
+    Perfetto or chrome://tracing. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def log_compile_time(fn, name: str | None = None, log=print):
+    """Wrap ``fn``: log its first call's seconds, its outputs' device work
+    included (``force_ready``): the one-time costs of a first call, such as
+    kernel builds and cuDNN's plans."""
+    label = name or getattr(fn, "__name__", "fn")
+    state = {"first": True}
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = force_ready(fn(*args, **kwargs))
+        if state["first"]:
+            log(f"[profile] {label}: first call {time.perf_counter() - t0:.2f}s")
+            state["first"] = False
+        return out
+
+    return wrapped
