@@ -256,6 +256,7 @@ printed. Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import pathlib
@@ -1587,24 +1588,29 @@ def phase_weakly():
                           result.mask_store, "weakly's last snapshot")
     final_model = copy.deepcopy(result.seg_state.model).eval()
 
-    # ---- one refinement-sweep batch, the card against the CPU, same weights:
-    # at the path's lr (masks cannot move) and at lr 0.1 (they do) ----
+    # ---- a refinement sweep of two batches, the card against the CPU, same
+    # weights: at the path's lr (masks cannot move) and at lr 0.1 (they do);
+    # on the card the first batch warms the sweep up and the second is a
+    # replay of its graph ----
     model = result.seg_state.model.eval()
     cpu_model = copy.deepcopy(model).cpu()
-    table = torch.arange(4).view(1, 4)
+    table = torch.arange(8).view(2, 4)
     agree = {}
     for lr in (r.lr, 0.1):
         rl = dataclasses.replace(r, lr=lr)
-        dev_masks = torch.from_numpy(masks[:4]).cuda()
+        dev_masks = torch.from_numpy(masks[:8]).cuda()
         cpu_masks = dev_masks.cpu().clone()
-        make_refine_sweep(model, rl, 256)(dev_masks, torch.from_numpy(images[:4]).cuda(),
+        make_refine_sweep(model, rl, 256)(dev_masks, torch.from_numpy(images[:8]).cuda(),
                                           table.cuda())
-        make_refine_sweep(cpu_model, rl, 256)(cpu_masks, torch.from_numpy(images[:4]), table)
+        check(make_refine_sweep(model, rl, 256).graph is not None, "the sweep was not graphed")
+        make_refine_sweep(cpu_model, rl, 256)(cpu_masks, torch.from_numpy(images[:8]), table)
         agree[str(lr)] = {"agreement": float((dev_masks.cpu() == cpu_masks).float().mean()),
-                          "changed_frac": float((cpu_masks.numpy() != masks[:4]).mean())}
+                          "changed_frac": float((cpu_masks.numpy() != masks[:8]).mean())}
         check(agree[str(lr)]["agreement"] >= 0.995,
               f"card/CPU refinement-sweep agreement {agree[str(lr)]} < 0.995 at lr {lr}")
     step_ms = seg_step_breakdown(result.seg_state, images[:4], masks[:4])
+    dispatch = graphed_dispatch(result.seg_state.model, images, masks)
+    dispatch["sweep"] = sweep_dispatch(result.seg_state.model, r, images, masks)
 
     phases = {name: {"seconds": sw.times[name], "calls": sw.counts[name],
                      "img_per_s": sw.rate(name),
@@ -1621,7 +1627,7 @@ def phase_weakly():
          wall_s=wall, phases=phases, metrics=m, peak_mem_gb=peak_gb,
          launches_main_path=launches, refine_plans_main_path=plans,
          card_cpu_sweep_agreement=agree,
-         store_fg_frac=float(masks.mean()), seg_step_ms=step_ms,
+         store_fg_frac=float(masks.mean()), seg_step_ms=step_ms, dispatch=dispatch,
          checkpoint={"dir_entries": ["alt_000", "alt_001"],
                      "snapshot_mb": snapshot_mb(ckpt_dir / "alt_000"),
                      "seconds_per_snapshot": sw.times["checkpoint"] / sw.counts["checkpoint"]})
@@ -1635,7 +1641,8 @@ def seg_state_snapshot(state) -> dict:
     opt = state.optimizer
     return {"model": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
             "m": [t.cpu().clone() for t in opt.m], "v": [t.cpu().clone() for t in opt.v],
-            "counters": (opt.count, opt.notfinite_count, opt.total_notfinite, state.step)}
+            "counters": (int(opt.count), int(opt.notfinite_count), int(opt.total_notfinite),
+                         state.step)}
 
 
 def check_snapshot_equals(alt_dir, want: dict, store, what: str):
@@ -1651,7 +1658,8 @@ def check_snapshot_equals(alt_dir, want: dict, store, what: str):
     check(len(opt["m"]) == len(want["m"]) and len(opt["v"]) == len(want["v"])
           and all(torch.equal(a, b) for a, b in zip(opt["m"] + opt["v"], want["m"] + want["v"])),
           f"{what}: Adam's moments differ")
-    counters = (opt["count"], opt["notfinite_count"], opt["total_notfinite"], tree["step"])
+    counters = (int(opt["count"]), int(opt["notfinite_count"]), int(opt["total_notfinite"]),
+                tree["step"])
     check(counters == want["counters"], f"{what}: counters {counters} != {want['counters']}")
     images, masks, keys = store.as_arrays()
     with np.load(alt_dir / "masks.npz", allow_pickle=False) as z:
@@ -1674,6 +1682,7 @@ def phase_weakly_boundary():
     from weaklysuperviseddl_tpu_torch.config import ExperimentConfig, apply_overrides
     from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
     from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
+    from weaklysuperviseddl_tpu_torch.pipelines import weakly
     from weaklysuperviseddl_tpu_torch.pipelines.weakly import run_weakly_supervised_alternating
     from weaklysuperviseddl_tpu_torch.train import alternating
     from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch
@@ -1698,9 +1707,10 @@ def phase_weakly_boundary():
           and cfg.mask == dataclasses.replace(base.mask, cam_thresh=0.5),
           "weakly_boundary config cut more than depth")
 
-    # the masks the alternating loop uploads before its first round, kept to
-    # count the pixels the refinement changes (outside every timed phase; with
-    # one round and one sweep, nothing else writes the masks)
+    # the masks of the run's one upload of the store (stage 4 trains on it and
+    # the alternating loop continues on it), kept to count the pixels the
+    # refinement changes (outside every timed phase; with one round and one
+    # sweep, nothing else writes the masks)
     uploaded = []
     upload = alternating.upload_store_resident
 
@@ -1716,7 +1726,8 @@ def phase_weakly_boundary():
     refine_cuda.launches = 0
     refine_cuda.plan_launches = dict.fromkeys(refine_cuda.plan_launches, 0)
     t0 = time.perf_counter()
-    with mock.patch.object(alternating, "upload_store_resident", recording_upload):
+    with mock.patch.object(alternating, "upload_store_resident", recording_upload), \
+            mock.patch.object(weakly, "upload_store_resident", recording_upload):
         result = run_weakly_supervised_alternating(cfg, stopwatch=sw, log=lambda *_: None,
                                                    device="cuda")
     wall = time.perf_counter() - t0
@@ -1765,11 +1776,11 @@ def phase_weakly_boundary():
 
 
 def seg_step_breakdown(state, images, masks) -> dict:
-    """Device ms of the parts of one segmentation training step at batch 4
-    (after the main path; it trains the model further): gather + preprocess,
-    forward + loss, backward, the guarded Adam update (its finite check reads
-    one scalar back), and the whole step; and the sweep's forward and kernel
-    per batch."""
+    """Device ms of the parts of one eager segmentation training step at
+    batch 4 (after the main path; it trains the model further): gather +
+    preprocess, forward + loss, backward, the guarded Adam update (its
+    decision and exact select on the device), and the whole step; and the
+    sweep's forward and kernel per batch."""
     import torch
 
     from weaklysuperviseddl_tpu_torch.losses.basic import per_example_nll
@@ -1803,6 +1814,287 @@ def seg_step_breakdown(state, images, masks) -> dict:
                                           runs=5, warmup=1)
     out["sweep_refine_ms"] = cuda_ms(lambda: refine_cuda(S, x.contiguous(), mm), runs=10)
     return out
+
+
+def state_distance(a, b, start) -> dict:
+    """How far two seg train states lie apart after the same steps from
+    ``start`` (a list of the parameters before them): the largest absolute
+    difference of a parameter, and the L2 distance of all parameters over
+    the L2 length of ``a``'s way from ``start``; whether every parameter,
+    buffer (BatchNorm statistics, the dropout key), moment and counter is
+    bit-equal, and the step counts too."""
+    import torch
+
+    pa, pb = list(a.model.parameters()), list(b.model.parameters())
+    tensors = lambda st: [*st.model.parameters(), *st.model.buffers(),  # noqa: E731
+                          *st.optimizer.m, *st.optimizer.v, st.optimizer.count,
+                          st.optimizer.notfinite_count, st.optimizer.total_notfinite]
+    with torch.no_grad():
+        diff = torch.cat([(x - y).reshape(-1).float() for x, y in zip(pa, pb)])
+        way = torch.cat([(x - s).reshape(-1).float() for x, s in zip(pa, start)])
+        return {"max_abs": float(diff.abs().max()),
+                "rel_l2": float(diff.norm() / way.norm().clamp(min=1e-30)),
+                "bit_equal": a.step == b.step and all(
+                    same_bits(x, y) for x, y in zip(tensors(a), tensors(b)))}
+
+
+def same_bits(x, y) -> bool:
+    """Whether two tensors hold the same bytes (a NaN equals the same NaN:
+    a step on a NaN batch leaves NaN BatchNorm statistics, as in JAX)."""
+    import torch
+
+    return x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+        x.reshape(-1).contiguous().view(torch.uint8), y.reshape(-1).contiguous().view(torch.uint8))
+
+
+def eager_epoch(state, images, masks, seed: int, batch: int = 4, seg_size: int = 256,
+                watch: int | None = None):
+    """One epoch as train_segmentation_model orders it (its permutation, its
+    padded tail, its dropout keys), step by step through the public eager
+    ``seg_train_step``. ``watch``: the step whose parameters and moments are
+    returned as they were before and after it."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import seed_dropout
+    from weaklysuperviseddl_tpu_torch.train.segmentation import (
+        _prep,
+        dropout_seed,
+        seg_train_step,
+    )
+
+    n = images.shape[0]
+    order = np.random.default_rng(seed).permutation(n)
+    snap = lambda: [t.detach().clone() for t in (*state.model.parameters(),  # noqa: E731
+                                        *state.optimizer.m, *state.optimizer.v)]
+    watched = None
+    for t in range(-(-n // batch)):
+        idx = order[t * batch:(t + 1) * batch]
+        nv = len(idx)
+        idx = np.concatenate([idx, np.repeat(idx[-1], batch - nv)])
+        idx_t = torch.from_numpy(idx).to(images.device)
+        x, m = _prep(images[idx_t], masks[idx_t], seg_size)
+        valid = torch.arange(batch, device=images.device) < nv
+        seed_dropout(state.model, dropout_seed(seed + 1, 0, t))
+        before = snap() if t == watch else None
+        seg_train_step(state, x, m, valid)
+        if t == watch:
+            watched = (before, snap())
+    return watched
+
+
+def graphed_dispatch(seg_model, store_images, store_masks) -> dict:
+    """The training chunk as a CUDA graph against the eager seg_train_step,
+    DeepLabV3-R50 at 256², batch 4, K = 8 (train_segmentation_model's
+    default), from the cycle's trained weights: per step events ms, device ms
+    and host ms, the capture's seconds and peak GB, in float32 and bfloat16;
+    a chunk replayed under sync-debug mode "error"; the graphed epoch at K = 8
+    and K = 1 against eager loops of seg_train_step, bit for bit under
+    cudnn.deterministic, and a planted stale dropout key that must fail that
+    gate; a NaN batch inside a chunk, bit for bit against the eager loop."""
+    import copy
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
+    from weaklysuperviseddl_tpu_torch.train.guard import GuardedAdam
+    from weaklysuperviseddl_tpu_torch.train.segmentation import (
+        SegTrainState,
+        _epoch_programs,
+        _epoch_table,
+        _prep,
+        _stage,
+        dropout_seed,
+        seg_train_step,
+        train_segmentation_model,
+    )
+
+    K, B, N = 8, 4, 32
+    images = torch.from_numpy(store_images[:N]).cuda()
+    masks = torch.from_numpy(store_masks[:N]).cuda()
+    quiet = lambda *_: None  # noqa: E731
+    out = {"K": K, "batch": B, "images": N}
+
+    def fresh(dtype):
+        model = DeepLabV3(2, 50, 1.0, dtype=dtype).cuda()
+        model.load_state_dict(seg_model.state_dict())
+        return SegTrainState(model, GuardedAdam(model.parameters(), lr=1e-4))
+
+    # ---- timing, float32 and bfloat16 ----
+    for dtype in ("float32", "bfloat16"):
+        state = fresh(dtype)
+        x, mm = _prep(images[:B], masks[:B], 256)
+        valid = torch.ones(B, dtype=torch.bool, device="cuda")
+        eager_step = lambda: seg_train_step(state, x, mm, valid)  # noqa: E731
+        eager = {"events_ms": cuda_ms(eager_step, runs=5, warmup=1),
+                 "device_ms": device_ms(eager_step, runs=2, warmup=1)[0],
+                 "host_ms": host_ms(eager_step, runs=3, warmup=1)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        train_segmentation_model(state, images, masks, num_epochs=1, batch_size=B,
+                                 seg_size=256, seed=0, log=quiet)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        prog = _epoch_programs(state, images, masks, B, 256, "cross_entropy", K)
+        check(set(prog.graphs) == {K}, f"graphs {sorted(prog.graphs)} after one full-chunk epoch")
+        rows = _stage(_epoch_table([np.arange(t * B, (t + 1) * B) for t in range(K)], B,
+                                   [dropout_seed(1, 0, t) for t in range(K)]),
+                      torch.device("cuda"))
+        chunk = lambda: prog.run(rows, state, images, masks)  # noqa: E731
+        graphed = {"events_ms": cuda_ms(chunk, runs=5, warmup=1) / K,
+                   "device_ms": device_ms(chunk, runs=2, warmup=0)[0] / K,
+                   "host_ms": host_ms(chunk, runs=10, warmup=1) / K,
+                   "capture_s": prog.capture_seconds[K], "first_call_s": first_s,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+                   "reserved_gb": torch.cuda.memory_reserved() / 2**30,
+                   "before_gb": base_gb}
+        # a chunk with no host synchronisation in it: the copy of its rows
+        # and the replay under sync-debug mode "error"
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            chunk()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        graphed["sync_free_chunk"] = True
+        # epochs through the entry point: img/s of the graphed loop
+        t0 = time.perf_counter()
+        train_segmentation_model(state, images, masks, num_epochs=3, batch_size=B,
+                                 seg_size=256, seed=1, log=quiet)
+        torch.cuda.synchronize()
+        graphed["epoch_img_per_s"] = 3 * N / (time.perf_counter() - t0)
+        out[dtype] = {"eager": eager, "graphed": graphed,
+                      "events_speedup": eager["events_ms"] / graphed["events_ms"]}
+        del state, prog, chunk
+        torch.cuda.empty_cache()
+
+    # ---- the graphed epoch against eager loops, from one state, under
+    # cudnn.deterministic (and DeepLabV3's upsample without atomics): 9 steps,
+    # a chunk of 8 and a half-valid tail step. Two eager loops, the graphed
+    # epoch at K = 8 and at K = 1 must all give the same bits: parameters,
+    # BatchNorm statistics, the dropout key, Adam's moments and counters. A
+    # graphed run whose staged dropout seeds are all step 0's (a stale key)
+    # must fail that gate ----
+    from weaklysuperviseddl_tpu_torch.train import segmentation
+
+    n_bits = N + 2
+    images = torch.from_numpy(store_images[:n_bits]).cuda()
+    masks = torch.from_numpy(store_masks[:n_bits]).cuda()
+    start = fresh("float32")
+    before = [p.detach().clone() for p in start.model.parameters()]
+    counters = lambda st: [int(st.optimizer.count), int(st.optimizer.notfinite_count),  # noqa: E731
+                           int(st.optimizer.total_notfinite), st.step]
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for name in ("eager_a", "eager_b"):
+            runs[name] = copy.deepcopy(start)
+            eager_epoch(runs[name], images, masks, seed=5)
+        for name, k in (("graphed_k8", K), ("graphed_k1", 1)):
+            runs[name] = copy.deepcopy(start)
+            train_segmentation_model(runs[name], images, masks, num_epochs=1, batch_size=B,
+                                     seg_size=256, seed=5, steps_per_dispatch=k, log=quiet)
+        planted = copy.deepcopy(start)
+        true_seed = segmentation.dropout_seed
+        segmentation.dropout_seed = lambda s, e, t: true_seed(s, e, 0)
+        try:
+            train_segmentation_model(planted, images, masks, num_epochs=1, batch_size=B,
+                                     seg_size=256, seed=5, log=quiet)
+        finally:
+            segmentation.dropout_seed = true_seed
+        steps = {k: counters(v) for k, v in runs.items()}
+        check(all(c == [9, 0, 0, 9] for c in steps.values()), f"counters {steps}")
+        got = {k: state_distance(runs[k], runs["eager_a"], before)
+               for k in ("eager_b", "graphed_k8", "graphed_k1")}
+        for k, d in got.items():
+            check(d["bit_equal"], f"{k} is not bit-equal to an eager loop: {got}")
+        fault = state_distance(planted, runs["eager_a"], before)
+        check(not fault["bit_equal"], "a stale dropout key in the graph passed the gate")
+        out["bits"] = {"cudnn_deterministic": True, "steps": 9, "against": "eager_a", **got,
+                       "planted_stale_dropout_key": {**fault, "gate_failed": True}}
+        del runs, planted
+
+        # ---- a NaN batch inside a graphed chunk: float images, the first
+        # row of step 3 all NaN; the eager loop shows the step keeps
+        # parameters and moments, and the graphed epoch equals it bit for bit ----
+        seed = 7
+        poisoned = images[:N].float() / 255.0
+        order = np.random.default_rng(seed).permutation(N)
+        poisoned[int(order[3 * B])] = float("nan")
+        eager = copy.deepcopy(start)
+        watched = eager_epoch(eager, poisoned, masks[:N], seed=seed, watch=3)
+        held = all(torch.equal(a, b) for a, b in zip(*watched))
+        check(held, "the eager step on the NaN batch changed parameters or moments")
+        graphed = copy.deepcopy(start)
+        train_segmentation_model(graphed, poisoned, masks[:N], num_epochs=1, batch_size=B,
+                                 seg_size=256, seed=seed, log=quiet)
+        check(counters(graphed) == counters(eager) == [K - 1, 0, 1, K],
+              f"counters after a NaN step: graphed {counters(graphed)}, eager {counters(eager)}")
+        nan_dist = state_distance(graphed, eager, before)
+        check(nan_dist["bit_equal"], f"graphed chunk with a NaN step {nan_dist} is not the "
+                                     "eager loop's bits")
+    finally:
+        torch.backends.cudnn.deterministic = old
+    # a chunk of NaN steps only (the buffer refilled in place), under the
+    # default math flags: a second program of this state, captured while the
+    # first stays cached; parameters, moments and Adam's count bit for bit.
+    # The copies are detached: a clone in autograd's graph would keep the
+    # parameters' gradient accumulators alive on the default stream, which a
+    # capture on another stream cannot wait on
+    kept = [t.detach().clone() for t in (*graphed.model.parameters(), *graphed.optimizer.m,
+                                         *graphed.optimizer.v, graphed.optimizer.count)]
+    poisoned.fill_(float("nan"))
+    train_segmentation_model(graphed, poisoned, masks[:N], num_epochs=1, batch_size=B,
+                             seg_size=256, seed=seed, log=quiet)
+    now = (*graphed.model.parameters(), *graphed.optimizer.m, *graphed.optimizer.v,
+           graphed.optimizer.count)
+    check(all(torch.equal(a, b) for a, b in zip(kept, now)),
+          "a chunk of NaN steps changed parameters, moments or Adam's count")
+    check(counters(graphed) == [K - 1, K, K + 1, 2 * K],
+          f"counters after a NaN chunk: {counters(graphed)}")
+    out["nan_step"] = {"position": "step 3 of a chunk of 8", "eager_held": held,
+                       "counters": counters(graphed), "graphed_vs_eager": nan_dist,
+                       "nan_chunk_held": True}
+    return out
+
+
+def sweep_dispatch(seg_model, cfg, store_images, store_masks) -> dict:
+    """The refinement sweep's ms per batch of 4 at 256²: replays of its
+    captured graph (make_refine_sweep) against the same batches op by op."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.train.alternating import _sweep_batch, make_refine_sweep
+
+    B, T = 4, 8
+    images = torch.from_numpy(store_images[:B * T]).cuda()
+    masks = torch.from_numpy(store_masks[:B * T]).cuda()
+    table = torch.arange(B * T, device="cuda").view(T, B)
+    model = seg_model.eval()
+    sweep = make_refine_sweep(model, cfg, 256)
+    graphed = lambda: sweep(masks, images, table)  # noqa: E731
+    # the first call warms up and captures the graph: what its pool keeps
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    graphed()
+    torch.cuda.synchronize()
+    pool = {"reserved_gb": (torch.cuda.memory_reserved() - before[0]) / 2**30,
+            "allocated_gb": (torch.cuda.memory_allocated() - before[1]) / 2**30}
+
+    def eager():
+        acc = torch.zeros((), device="cuda")
+        with torch.no_grad():
+            for idx in table:
+                _sweep_batch(model, cfg, 256, masks, images, idx, acc)
+
+    return {"batches": T, "batch": B,
+            "graphed_ms_per_batch": cuda_ms(graphed, runs=3, warmup=1) / T,
+            "eager_ms_per_batch": cuda_ms(eager, runs=3, warmup=1) / T,
+            "graphed_host_ms_per_batch": host_ms(graphed, runs=3, warmup=1) / T,
+            "eager_host_ms_per_batch": host_ms(eager, runs=1, warmup=1) / T,
+            "capture_s": sweep.graph.capture_seconds, "graph_memory_added": pool}
 
 
 def bilateral_work(B: int, Nq: int, Nk: int, d: int, C: int):
@@ -2351,6 +2643,7 @@ def phase_ablations():
     from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
     from weaklysuperviseddl_tpu_torch.pipelines import ablations
     from weaklysuperviseddl_tpu_torch.pipelines.weakly import build_classifier
+    from weaklysuperviseddl_tpu_torch.train.segmentation import _EPOCH_PROGRAMS
 
     cfg = ExperimentConfig(seg=SegConfig(epochs=1))
     grid, repeats = ablations.default_grid()[:1], 2
@@ -2386,6 +2679,12 @@ def phase_ablations():
                                                     log=lambda *_: None)
     wall = time.perf_counter() - t0
     launches = {"cc_label": label_components_cuda.launches}
+    # what the grid's states leave on the card: each run's captured graphs go
+    # with its optimizer
+    gc.collect()
+    after_grid = {"allocated_gb": torch.cuda.memory_allocated() / 2**30,
+                  "reserved_gb": torch.cuda.memory_reserved() / 2**30,
+                  "epoch_programs_cached": len(_EPOCH_PROGRAMS)}
     check_cc_image_plan("ablations")
     check(len(residents) == 1 and len(stores) == repeats, "CAMs once, masks once per run")
     resident = residents[0]
@@ -2413,7 +2712,8 @@ def phase_ablations():
          cuts=cuts, train_images=len(resident), wall_s=wall, seconds_per_run=run_s,
          mean_seconds_per_run=statistics.mean(run_s), summary=summary,
          runs=[{k: r[k] for k in ("run_id", "iou", "acc", "final_loss")} for r in runs],
-         keep_largest_removed_frac=removed, launches_main_path=launches)
+         keep_largest_removed_frac=removed, launches_main_path=launches,
+         memory_after_grid=after_grid)
     return launches
 
 

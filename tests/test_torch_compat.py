@@ -510,6 +510,8 @@ def test_segmentation_handle_moves_with_its_optimizer():
     assert handle.to("meta") is handle
     assert next(handle.module.parameters()).device.type == "meta"
     assert {t.device.type for t in opt.m + opt.v} == {"meta"}
+    assert {t.device.type for t in (opt.count, opt.notfinite_count, opt.total_notfinite)} \
+        == {"meta"}
 
 
 # ---- the window losses, affinities, CRF -------------------------------------

@@ -1,6 +1,6 @@
-"""Port parity for the CRF's "grid" and "rff" backends and for
-``masks_from_cams`` through each of the grid, lattice and RFF backends,
-against the JAX package on the same numpy inputs.
+"""Port parity for the CRF's "grid" and "rff" backends against the JAX package
+on the same numpy inputs (``masks_from_cams`` through each of the grid,
+lattice and RFF backends is in ``test_torch_crf_masks.py``).
 
 JAX's RFF draws come from ``PRNGKey(7)`` through threefry, which torch cannot
 reproduce: the tests draw them with the same ``jax.random`` calls as JAX's
@@ -20,14 +20,11 @@ from test_densecrf import PARAMS, make_case
 from test_torch_refine import single_torch_thread  # noqa: F401  (fixture)
 
 from weaklysuperviseddl_tpu.masks.densecrf import densecrf_inference as jax_densecrf
-from weaklysuperviseddl_tpu.masks.pseudo import ResidentCams as JaxResidentCams
-from weaklysuperviseddl_tpu.masks.pseudo import masks_from_cams as jax_masks_from_cams
 from weaklysuperviseddl_tpu.ops.pallas_bilateral import gaussian_filter_rff as jax_filter_rff
 from weaklysuperviseddl_tpu.ops.pallas_bilateral import rff_basis as jax_rff_basis
 from weaklysuperviseddl_tpu_torch.data.synthetic import synthetic_pet_arrays
 from weaklysuperviseddl_tpu_torch.masks import densecrf
 from weaklysuperviseddl_tpu_torch.masks.densecrf import densecrf_inference
-from weaklysuperviseddl_tpu_torch.masks.pseudo import ResidentCams, masks_from_cams
 from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_rff, rff_basis
 
 pytestmark = pytest.mark.usefixtures("single_torch_thread")
@@ -179,31 +176,3 @@ def test_rff_crf_matches_jax_with_jax_draws(monkeypatch):
         np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)
 
 
-@pytest.mark.parametrize("backend", ["grid", "lattice", "rff"])
-def test_masks_from_cams_with_crf_agrees_with_jax(backend, monkeypatch):
-    """As test_torch_crf.py's test of the "subsampled" backend: 48² CAMs
-    (noisy, smoothed trimap foregrounds) over raw 56² images at the
-    reference's CRF parameters, the last batch padded, mask agreement >=
-    0.999 (the two packages' resizes differ by up to 1e-6)."""
-    n, size = 3, 48
-    raw, _, _ = synthetic_pet_arrays(n, image_size=56, seed=5)
-    raw_u8 = (raw * 255).astype(np.uint8)
-    _, _, tri64 = synthetic_pet_arrays(n, image_size=size, seed=5)
-    rng = np.random.default_rng(6)
-    fg = (tri64 == 1).astype(np.float32)
-    cams = np.clip(0.7 * fg + rng.uniform(-0.25, 0.35, fg.shape), 0, 1).astype(np.float32)
-    store = np.zeros((n, size, size, 3), np.uint8)
-    if backend == "rff":
-        monkeypatch.setattr(densecrf, "rff_basis",
-                            functools.partial(rff_basis, draws=jax_draws(5, 4096)))
-    kw = dict(cam_thresh=0.3, keep_largest_masks=True, use_crf=True,
-              crf_kwargs=dict(REFERENCE, bilat_backend=backend))
-    want = jax_masks_from_cams(JaxResidentCams(jnp.asarray(raw_u8), jnp.asarray(cams),
-                                               jnp.asarray(store), size, 2), **kw)
-    got = masks_from_cams(ResidentCams(torch.from_numpy(raw_u8), torch.from_numpy(cams),
-                                       torch.from_numpy(store), size, 2), **kw)
-    _, w_masks, w_keys = want.as_arrays()
-    _, g_masks, g_keys = got.as_arrays()
-    assert g_keys == w_keys and len(g_keys) == n
-    assert (g_masks == w_masks).mean() >= 0.999
-    assert 0.01 < g_masks.mean() < 0.99

@@ -1,7 +1,8 @@
 """The port on the card: the CUDA kernels (connected components, refinement
 and its plans, the window-loss sum and gradient, the CRF's bilateral filter,
 the LayerCAM fusion) against their plain versions, the serving path and
-BASNet on CUDA against the CPU. Needs an NVIDIA GPU and nvcc; skipped
+BASNet on CUDA against the CPU, the training chunk and the refinement sweep
+as CUDA graphs against their eager loops. Needs an NVIDIA GPU and nvcc; skipped
 elsewhere. Imports no JAX, so it runs where JAX is absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -537,9 +538,10 @@ def test_layercam_pallas_fusion_launches_the_kernel(cuda):
 
 
 def test_dropout_generator_on_the_card(cuda):
-    """The ASPP dropout draws its mask from a generator on the card: one seed,
-    one mask; another seed, another; seeding and drawing copy nothing from the
-    host (no host-to-device copy in a profiler trace of three steps' worth)."""
+    """The ASPP dropout draws its mask on the card from its key: one seed,
+    one mask, the CPU's bit for bit; another seed, another; seeding from a
+    host integer or a device tensor and drawing copy nothing from the host
+    (no host-to-device copy in a profiler trace of three steps' worth)."""
     from torch.profiler import ProfilerActivity, profile
 
     from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3, seed_dropout
@@ -553,18 +555,232 @@ def test_dropout_generator_on_the_card(cuda):
     b = drop(x)
     seed_dropout(model, 12)
     c = drop(x)
-    assert drop.generator.device == x.device
+    assert drop.key.device == x.device
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert abs((a != 0).float().mean().item() - 0.5) < 0.01
+    twin = DeepLabV3(backbone_depth=18, width_multiplier=0.25).train()
+    seed_dropout(twin, 11)
+    assert torch.equal(twin.classifier[0].project[3](x.cpu()), a.cpu())
+    seeds = torch.arange(3, device=cuda)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for seed in range(3):
             seed_dropout(model, seed)
             drop(x)
+            seed_dropout(model, seeds[seed])
+            drop(x)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()]
-    assert any("bernoulli" in n for n in names)
     assert not [n for n in names if "HtoD" in n]
+
+
+def _small_seg_state(cuda, seed=0):
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
+    from weaklysuperviseddl_tpu_torch.train.segmentation import create_seg_state
+
+    return create_seg_state(DeepLabV3(backbone_depth=18, width_multiplier=0.25), seed=seed,
+                            lr=1e-3, device=cuda)
+
+
+def _seg_data(cuda, n=10, size=32):
+    rng = np.random.default_rng(9)
+    images = rng.uniform(0, 255, (n, size, size, 3)).astype(np.uint8)
+    masks = np.zeros((n, size, size), np.uint8)
+    masks[:, :, : size // 2] = 1
+    images[:, :, : size // 2] += 60
+    return torch.from_numpy(images).to(cuda), torch.from_numpy(masks).to(cuda)
+
+
+def _state_tensors(st):
+    opt = st.optimizer
+    return [*st.model.parameters(), *st.model.buffers(), *opt.m, *opt.v, opt.count,
+            opt.notfinite_count, opt.total_notfinite]
+
+
+def _bit_equal(a, b):
+    """Parameters, buffers (BatchNorm statistics, the dropout key), Adam's
+    moments and counters, and the step counts, bit for bit."""
+    return a.step == b.step and all(torch.equal(x, y)
+                                    for x, y in zip(_state_tensors(a), _state_tensors(b)))
+
+
+def test_upsample_gradient_is_deterministic_on_the_card(cuda):
+    """DeepLabV3's upsample (32² → 256², batch 4, 2 classes) on the card:
+    the values of F.interpolate, a gradient that is the same bits in two
+    runs and within 2e-6 of the largest of torch's own (atomic) backward."""
+    from weaklysuperviseddl_tpu_torch.ops.resize import upsample_bilinear
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(4, 2, 32, 32, device=cuda, generator=gen, requires_grad=True)
+    g = torch.randn(4, 2, 256, 256, device=cuda, generator=gen)
+    want = torch.nn.functional.interpolate(x, (256, 256), mode="bilinear", align_corners=False)
+    (want_gx,) = torch.autograd.grad(want, x, g)
+    grads = []
+    for _ in range(2):
+        y = upsample_bilinear(x, (256, 256))
+        assert torch.equal(y, want)
+        grads.append(torch.autograd.grad(y, x, g)[0])
+    assert torch.equal(grads[0], grads[1])
+    assert float((grads[0] - want_gx).abs().max()) <= 2e-6 * float(want_gx.abs().max())
+
+
+def test_graphed_chunks_equal_the_eager_loop(cuda, monkeypatch):
+    """train_segmentation_model on the card (graphs of K = 3 and of one
+    step: each epoch a chunk of 3, then three single steps, the last half
+    valid) against the same 2 epochs op by op, from one state, under
+    cudnn.deterministic: two eager runs and the graphed run give the same
+    bits (DeepLabV3's upsample has no atomics in its backward); the step
+    counts and Adam's count alike; the graphs were captured once and
+    replayed."""
+    import copy
+
+    from weaklysuperviseddl_tpu_torch.train import segmentation
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    images, masks = _seg_data(cuda, n=11)
+    start = _small_seg_state(cuda)
+
+    def run(graphed):
+        state = copy.deepcopy(start)
+        with pytest.MonkeyPatch.context() as mp:
+            if not graphed:   # the CPU's path: the steps in order, op by op
+                mp.setattr(segmentation, "_epoch_programs",
+                           lambda st, im, mk, b, s, loss, K: segmentation._EagerEpochs(
+                               b, s, loss, None, cuda))
+            segmentation.train_segmentation_model(state, images, masks, num_epochs=2,
+                                                  batch_size=2, seg_size=32, seed=3,
+                                                  steps_per_dispatch=3, log=lambda *a: None)
+        return state
+
+    eager_a, eager_b, graphed = run(False), run(False), run(True)
+    assert graphed.step == eager_a.step == 12 and int(graphed.optimizer.count) == 12
+    assert _bit_equal(eager_a, eager_b)
+    assert _bit_equal(graphed, eager_a)
+    prog = segmentation._epoch_programs(graphed, images, masks, 2, 32, "cross_entropy", 3)
+    assert sorted(prog.graphs) == [1, 3]
+
+
+def test_graphed_grouping_changes_no_bit(cuda, monkeypatch):
+    """Both graphed, dropout on, under cudnn.deterministic: K = 8 (a chunk
+    of 8 and a single step an epoch) and K = 1 (nine replays of the one-step
+    graph) train to the same bits, each step's dropout key read from its
+    row of the staged table."""
+    import copy
+
+    from weaklysuperviseddl_tpu_torch.train.segmentation import train_segmentation_model
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    images, masks = _seg_data(cuda, n=18)
+    start = _small_seg_state(cuda, seed=4)
+    runs = []
+    for k in (8, 1):
+        state = copy.deepcopy(start)
+        train_segmentation_model(state, images, masks, num_epochs=2, batch_size=2, seg_size=32,
+                                 seed=6, steps_per_dispatch=k, log=lambda *a: None)
+        runs.append(state)
+    assert runs[0].step == 18 and int(runs[0].optimizer.count) == 18
+    assert _bit_equal(*runs)
+
+
+def test_one_state_captures_a_second_program(cuda, monkeypatch):
+    """A state trained through one pair of graphs and then under other math
+    flags (another key of the program cache) captures a second pair while
+    the first stays cached, and both train: the captures share one stream,
+    so the gradient accumulators made in the first serve the second."""
+    from weaklysuperviseddl_tpu_torch.train.segmentation import (
+        _EPOCH_PROGRAMS,
+        train_segmentation_model,
+    )
+
+    images, masks = _seg_data(cuda, n=8)
+    state = _small_seg_state(cuda, seed=2)
+    for deterministic in (True, False):
+        monkeypatch.setattr(torch.backends.cudnn, "deterministic", deterministic)
+        _, loss = train_segmentation_model(state, images, masks, num_epochs=1, batch_size=2,
+                                           seg_size=32, steps_per_dispatch=4,
+                                           log=lambda *a: None)
+        assert np.isfinite(loss)
+    programs = [p for p in _EPOCH_PROGRAMS._d.values() if p.model() is state.model]
+    assert len(programs) == 2 and all(sorted(p.graphs) == [4] for p in programs)
+    assert state.step == 8 and int(state.optimizer.count) == 8
+
+
+def test_segmentation_handle_trains_after_a_move_to_the_card(cuda):
+    """compat's handle built on the CPU and moved to the card takes its
+    optimizer's moments and counters along, and trains there through the
+    graphs: the counters stay on the card and count the steps."""
+    from weaklysuperviseddl_tpu_torch.compat import SegmentationModel as Seg
+    from weaklysuperviseddl_tpu_torch.train.segmentation import train_segmentation_model
+
+    handle, opt = Seg.initialize_model(2, device="cpu", backbone_depth=18,
+                                       width_multiplier=0.25, input_size=32)
+    handle.to(cuda)
+    tensors = [*opt.m, *opt.v, opt.count, opt.notfinite_count, opt.total_notfinite]
+    assert {t.device.type for t in tensors} == {"cuda"}
+    images, masks = _seg_data(cuda, n=8)
+    state, loss = train_segmentation_model(handle.state, images, masks, num_epochs=1,
+                                           batch_size=2, seg_size=32, steps_per_dispatch=4,
+                                           log=lambda *a: None)
+    assert np.isfinite(loss) and state.step == 4
+    assert opt.count.is_cuda and int(opt.count) == 4 and int(opt.total_notfinite) == 0
+
+
+def test_graphed_chunk_runs_without_host_sync(cuda):
+    """A chunk's replay (the copy of its rows and the graph) under sync-debug
+    mode "error": no host synchronisation in it."""
+    from weaklysuperviseddl_tpu_torch.train.segmentation import (
+        _epoch_programs,
+        _epoch_table,
+        _stage,
+        train_segmentation_model,
+    )
+
+    images, masks = _seg_data(cuda, n=8)
+    state = _small_seg_state(cuda)
+    train_segmentation_model(state, images, masks, num_epochs=1, batch_size=2, seg_size=32,
+                             steps_per_dispatch=4, log=lambda *a: None)
+    prog = _epoch_programs(state, images, masks, 2, 32, "cross_entropy", 4)
+    rows = _stage(_epoch_table([np.arange(2 * t, 2 * t + 2) for t in range(4)], 2,
+                               [1, 2, 3, 4]), cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        prog.run(rows, state, images, masks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert state.step == 4 and int(state.optimizer.count) == 8
+
+
+def test_sweep_graph_counts_replays_and_matches_eager(cuda):
+    """The refinement sweep's graph against the same batches op by op: the
+    same masks and loss; K1's launches counted through the replays, one a
+    batch; a second sweep replays the same graph."""
+    from weaklysuperviseddl_tpu_torch.config import RefineConfig
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
+    from weaklysuperviseddl_tpu_torch.train.alternating import _sweep_batch, make_refine_sweep
+
+    state = _small_seg_state(cuda)
+    images, masks = _seg_data(cuda, n=12)
+    cfg = RefineConfig(lr=0.1)
+    table = torch.arange(12, device=cuda).view(4, 3)
+    model = state.model.eval()
+    want, want_loss = masks.clone(), torch.zeros((), device=cuda)
+    with torch.no_grad():
+        for idx in table:
+            _sweep_batch(model, cfg, 32, want, images, idx, want_loss)
+    got = masks.clone()
+    before = refine_cuda.launches
+    sweep = make_refine_sweep(model, cfg, 32)
+    loss = sweep(got, images, table)
+    assert refine_cuda.launches == before + 4
+    assert sweep.graph is not None and len(sweep.graph.launches) == 1
+    assert torch.equal(got, want)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-6, atol=0)
+    graph = sweep.graph
+    make_refine_sweep(model, cfg, 32)(got, images, table)
+    assert make_refine_sweep(model, cfg, 32).graph is graph
+    assert refine_cuda.launches == before + 8
 
 
 def test_snapshot_from_the_card_restores_on_the_cpu_and_back(cuda, tmp_path):
@@ -755,7 +971,7 @@ def test_compat_surface_launches_its_kernels(cuda):
     before = gaussian_filter_cuda.launches
     got = CL.apply_dense_crf(img, cam.to(cuda))
     assert gaussian_filter_cuda.launches == before + 6
-    assert (got == CL.apply_dense_crf(img, cam, device="cpu")).mean() >= 0.999
+    assert (got == CL.apply_dense_crf(img, cam)).mean() >= 0.999   # cam on the CPU: the CPU
 
     handle, _ = SegmentationModel.initialize_model(2, device=cuda, backbone_depth=18,
                                                    width_multiplier=0.25, input_size=32)

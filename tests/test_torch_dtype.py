@@ -9,7 +9,8 @@ float32; C, the port in bfloat16. It holds
 where ``dist`` is the largest absolute difference (for masks, the share of
 pixels that disagree): the port in bfloat16 sits no further from JAX's
 bfloat16 than twice JAX's own bfloat16 rounding. The three distances are in
-every assertion message and printed. Also here: the ASPP's tap plan in
+every assertion message and printed. DeepLabV3's and the classifier's
+logits and three DeepLabV3 steps are in ``test_torch_dtype_models.py``. Also here: the ASPP's tap plan in
 float32 against the dilated convolution and JAX's ``_AtrousTapConv``, the
 LayerCAM fusion's plain version on bfloat16 inputs against the JAX kernel in
 interpret mode and a numpy model of the CUDA kernel's bfloat16 loads, and
@@ -23,13 +24,11 @@ import flax.linen
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 import torch.nn.functional as F
 from test_torch_basnet import _jax_variables, _perturb
 from test_torch_classifier import jax_classifier_numpy
-from test_torch_models import jax_deeplab_numpy
 from test_torch_refine import single_torch_thread  # noqa: F401  (fixture)
 
 import weaklysuperviseddl_tpu.train.basnet as jax_train_basnet
@@ -39,13 +38,9 @@ from weaklysuperviseddl_tpu.data.loader import batches as jax_batches
 from weaklysuperviseddl_tpu.masks.pseudo import cam_to_mask as jax_cam_to_mask
 from weaklysuperviseddl_tpu.models.basnet import BASNet as JaxBASNet
 from weaklysuperviseddl_tpu.models.classifier import CamClassifier as JaxCamClassifier
-from weaklysuperviseddl_tpu.models.deeplabv3 import DeepLabV3 as JaxDeepLabV3
 from weaklysuperviseddl_tpu.models.deeplabv3 import _AtrousTapConv
-from weaklysuperviseddl_tpu.models.torch_import import deeplab_variables
 from weaklysuperviseddl_tpu.ops.pallas_cam import fused_cam_fusion
 from weaklysuperviseddl_tpu.train.classifier import train_fc_only as jax_train_fc
-from weaklysuperviseddl_tpu.train.guard import apply_if_finite_fast
-from weaklysuperviseddl_tpu.train.segmentation import make_seg_train_step
 import weaklysuperviseddl_tpu_torch.pipelines.supervised as port_supervised
 import weaklysuperviseddl_tpu_torch.train.basnet as port_train_basnet
 from weaklysuperviseddl_tpu_torch.cam.layercam import layercam
@@ -57,18 +52,13 @@ from weaklysuperviseddl_tpu_torch.data.synthetic import synthetic_pet_arrays
 from weaklysuperviseddl_tpu_torch.masks.pseudo import cam_to_mask
 from weaklysuperviseddl_tpu_torch.models.basnet import BASNet
 from weaklysuperviseddl_tpu_torch.models.classifier import CamClassifier
-from weaklysuperviseddl_tpu_torch.models.deeplabv3 import AtrousConv, DeepLabV3
-from weaklysuperviseddl_tpu_torch.models.jax_import import (
-    cam_classifier_state_dict_from_jax,
-    deeplab_state_dict_from_jax,
-)
+from weaklysuperviseddl_tpu_torch.models.deeplabv3 import AtrousConv
+from weaklysuperviseddl_tpu_torch.models.jax_import import cam_classifier_state_dict_from_jax
 from weaklysuperviseddl_tpu_torch.models.resnet import compute_dtype, init_weights
 from weaklysuperviseddl_tpu_torch.ops.cam_fusion import cam_fusion, cam_fusion_plain
 from weaklysuperviseddl_tpu_torch.pipelines.basnet_infer import build_basnet
 from weaklysuperviseddl_tpu_torch.pipelines.weakly import build_seg_model
 from weaklysuperviseddl_tpu_torch.train.classifier import train_fc_only
-from weaklysuperviseddl_tpu_torch.train.guard import GuardedAdam
-from weaklysuperviseddl_tpu_torch.train.segmentation import SegTrainState, seg_train_step
 
 pytestmark = pytest.mark.usefixtures("single_torch_thread")
 
@@ -100,26 +90,6 @@ def assert_within_jax_rounding(what: str, c_a: float, a_b: float):
 
 
 # ---- DeepLabV3 ------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("depth", [18, 50])
-def test_deeplab_logits_bf16(depth):
-    """Eval-mode logits at width 0.25, 64² (every ASPP rate on the tap
-    plan), and argmax agreement with JAX's bfloat16 >= 0.999."""
-    model, variables = jax_deeplab_numpy(depth, 0.25)
-    x = np.random.default_rng(4).standard_normal((2, 64, 64, 3)).astype(np.float32)
-    b = np.asarray(model.apply(variables, jnp.asarray(x), train=False))
-    jbf = JaxDeepLabV3(num_classes=2, backbone_depth=depth, width_multiplier=0.25, dtype=BF16)
-    a = np.asarray(jbf.apply(variables, jnp.asarray(x), train=False))
-    port = DeepLabV3(2, depth, 0.25, dtype="bfloat16").eval()
-    port.load_state_dict(deeplab_state_dict_from_jax(variables), strict=True)
-    with torch.no_grad():
-        c = port.logits_nhwc(torch.from_numpy(x))
-    assert c.dtype == torch.float32 and a.dtype == np.float32
-    c = c.numpy()
-    assert_within_jax_rounding(f"DeepLabV3-{depth} logits", dist(c, a), dist(a, b))
-    agree = float((c.argmax(-1) == a.argmax(-1)).mean())
-    assert agree >= 0.999, f"argmax agreement with JAX bf16 {agree}"
 
 
 @pytest.mark.parametrize("rate,size", [(12, 32), (24, 32), (36, 32), (2, 20), (12, 48)])
@@ -154,47 +124,6 @@ class _NoDropout(flax.linen.Module):
         return x
 
 
-def test_seg_train_steps_bf16(monkeypatch):
-    """Three CE steps (Adam 1e-4 behind the guard, dropout the identity) from
-    the bridged depth-18 weights: the three losses and the parameters after
-    the third step."""
-    monkeypatch.setattr(flax.linen, "Dropout", _NoDropout)
-    _, variables = jax_deeplab_numpy(18, 0.25)
-    rng = np.random.default_rng(7)
-    data = [(rng.standard_normal((4, 64, 64, 3)).astype(np.float32),
-             rng.integers(0, 3, (4, 64, 64)).astype(np.int32), np.arange(4) < 3)
-            for _ in range(3)]
-
-    def run_jax(dtype):
-        model = JaxDeepLabV3(num_classes=2, backbone_depth=18, width_multiplier=0.25,
-                             dtype=dtype)
-        tx = apply_if_finite_fast(optax.adam(1e-4))
-        params = jax.tree.map(jnp.array, variables["params"])
-        stats = jax.tree.map(jnp.array, variables["batch_stats"])
-        opt = tx.init(params)
-        step = make_seg_train_step(model, tx)
-        losses = []
-        for x, m, v in data:
-            params, stats, opt, loss = step(params, stats, opt, jnp.asarray(x), jnp.asarray(m),
-                                            jnp.asarray(v), jax.random.PRNGKey(0))
-            losses.append(float(loss))
-        return np.array(losses), jax.tree.map(np.asarray, params)
-
-    a_loss, a_params = run_jax(BF16)
-    b_loss, b_params = run_jax(jnp.float32)
-    port = DeepLabV3(2, 18, 0.25, dtype="bfloat16")
-    port.load_state_dict(deeplab_state_dict_from_jax(variables), strict=True)
-    port.classifier[0].project[3] = torch.nn.Identity()
-    state = SegTrainState(port, GuardedAdam(port.parameters(), lr=1e-4))
-    c_loss = np.array([float(seg_train_step(state, torch.from_numpy(x), torch.from_numpy(m),
-                                            torch.from_numpy(v))) for x, m, v in data])
-    assert all(p.dtype == torch.float32 for p in port.parameters())
-    c_params = deeplab_variables(port.state_dict())["params"]
-    assert_within_jax_rounding("seg step losses", dist(c_loss, a_loss), dist(a_loss, b_loss))
-    assert_within_jax_rounding("seg step parameters", tree_dist(c_params, a_params),
-                               tree_dist(a_params, b_params))
-
-
 # ---- the CAM classifier, LayerCAM and pseudo-masks --------------------------------------
 
 
@@ -209,17 +138,6 @@ def _classifiers():
 
 def _images(seed, n=4, size=64):
     return np.random.default_rng(seed).uniform(0, 1, (n, size, size, 3)).astype(np.float32)
-
-
-def test_classifier_logits_bf16():
-    jax_models, variables, port = _classifiers()
-    x = _images(4)
-    a, b = (np.asarray(jax_models[dt].apply(variables, jnp.asarray(x))[0]).astype(np.float32)
-            for dt in (BF16, jnp.float32))
-    with torch.no_grad():
-        c, feats = port(torch.from_numpy(x).permute(0, 3, 1, 2))
-    assert c.dtype == torch.bfloat16 and all(f.dtype == torch.bfloat16 for f in feats)
-    assert_within_jax_rounding("classifier logits", dist(c.float(), a), dist(a, b))
 
 
 @pytest.fixture(scope="module")

@@ -3,9 +3,9 @@ weights (bridged by ``models/jax_import.py``) and inputs: the shape rules,
 the tensor-parallel leaves, the sharded segmentation step at data 4 × model 1
 and data 2 × model 2 (against the port's one-device step and JAX's mesh
 step, JAX's tests/test_train.py tolerances), the guard's mesh-wide decision,
-the data-parallel epoch with a ragged tail (against JAX's), the sharded eval
-(against the counters and JAX's), and data-parallel serving (against the
-one-device Predictor, bit for bit).
+the data-parallel epoch with a ragged tail (against JAX's, and in chunks of
+2 against step by step) and the sharded eval (against the counters and
+JAX's). Data-parallel serving is in ``test_torch_mesh_serving.py``.
 
 The port's side runs in gloo groups of 4 CPU processes, one group per mesh
 shape, started once per module (``tests/torch_mesh_cases.py``), while this
@@ -35,14 +35,12 @@ from weaklysuperviseddl_tpu.train.segmentation import (
 from weaklysuperviseddl_tpu_torch.config import MeshConfig
 from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
 from weaklysuperviseddl_tpu_torch.models.jax_import import deeplab_state_dict_from_jax
-from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
 from weaklysuperviseddl_tpu_torch.parallel.mesh import (
     Ranks,
     make_mesh,
     mesh_from_config,
     tp_leaf_sharding,
 )
-from weaklysuperviseddl_tpu_torch.pipelines.serve import Predictor
 from weaklysuperviseddl_tpu_torch.train.segmentation import SegTrainState, seg_train_step
 from weaklysuperviseddl_tpu_torch.utils.metrics import binary_confusion_counts, finish_iou_and_acc
 
@@ -238,6 +236,20 @@ def test_data_parallel_epoch_matches_jax(runs):
             np.testing.assert_allclose(port["epoch_state"][k], want, atol=2e-5, err_msg=k)
 
 
+def test_data_parallel_chunked_epoch_matches_per_step(runs):
+    """JAX's test_dp_chunked_epoch_matches_per_step on the port, exact: the
+    same two epochs in chunks of 2 (a chunk and a partly valid single step an
+    epoch) and step by step give the same bits on every rank. A mesh of more
+    than one rank runs a chunk's steps op by op, so this holds the per-shard
+    tables, their split into a chunk and a tail and the global step's
+    dropout keys; graphs are a one-rank path (test_torch_cuda.py)."""
+    for port in runs["port"][2, 2]:
+        assert port["epoch_steps"] == port["per_step_steps"] == 2 * 3
+        assert port["epoch_loss"] == port["per_step_loss"]
+        for k, want in port["per_step_state"].items():
+            np.testing.assert_array_equal(port["epoch_state"][k], want, err_msg=k)
+
+
 def test_sharded_eval_matches_counters_and_jax(runs):
     iou, acc = runs["port"][4, 1][0]["eval"]
     model = DeepLabV3(2, 18, 0.25).eval()
@@ -253,37 +265,3 @@ def test_sharded_eval_matches_counters_and_jax(runs):
     np.testing.assert_allclose([iou, acc], [jax_iou, jax_acc], atol=1e-3)
 
 
-@pytest.fixture(scope="module")
-def serving():
-    model = init_weights(DeepLabV3(2, 18, 0.25), torch.Generator().manual_seed(0))
-    imgs = (np.random.default_rng(2).uniform(0, 1, (8, 48, 48, 3)) * 255).astype(np.uint8)
-    return model, imgs, Predictor(model, size=48, max_batch=8, device="cpu")(imgs)
-
-
-@pytest.mark.parametrize("variant", ["float32", "packed", "int8"])
-def test_data_parallel_serving_matches_one_device_bit_for_bit(serving, variant):
-    """JAX's tests/test_pipelines.py: Predictor(mesh=) on a data axis of 8
-    gives the one-device Predictor's masks exactly, float32, packed and int8
-    (each quantized once on the same images)."""
-    model, imgs, ref = serving
-    mesh = make_mesh(data=8, devices=[torch.device("cpu")] * 8)
-    dp = Predictor(model, size=48, max_batch=8, mesh=mesh, packed=variant == "packed")
-    if variant == "int8":
-        dp.quantize(imgs)
-        one = Predictor(model, size=48, max_batch=8, device="cpu")
-        one.quantize(imgs)
-        ref = one(imgs)
-        np.testing.assert_array_equal(dp(imgs[:3]), one(imgs[:3]))
-    np.testing.assert_array_equal(dp(imgs), ref)
-
-
-def test_data_parallel_serving_buckets_and_checks():
-    model = DeepLabV3(2, 18, 0.25)
-    mesh = make_mesh(data=4, model=2, devices=[torch.device("cpu")] * 8)
-    pred = Predictor(model, size=32, max_batch=8, mesh=mesh)
-    assert [pred._bucket(n) for n in (1, 3, 5, 8)] == [4, 4, 8, 8]
-    assert pred.buckets() == [4, 8]
-    with pytest.raises(ValueError, match="max_batch 6 not divisible by data axis 4"):
-        Predictor(model, size=32, max_batch=6, mesh=mesh)
-    with pytest.raises(ValueError, match="not both"):
-        Predictor(model, size=32, max_batch=8, mesh=mesh, device="cpu")

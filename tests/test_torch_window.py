@@ -32,9 +32,7 @@ def _inputs(H, W, C, ws):
     return preds, images
 
 
-@pytest.mark.parametrize("loss", ["ncut", "boundary"])
-@pytest.mark.parametrize("H,W,C,ws", FUZZ_SHAPES)
-def test_fused_losses_match_jax_kernels(H, W, C, ws, loss):
+def check_fused_losses(H, W, C, ws, loss):
     """Values rtol 1e-5, gradients rtol 1e-4 / atol 1e-7: the tolerances the
     JAX package holds its Pallas kernels to (tests/test_pallas_window.py)."""
     preds, images = _inputs(H, W, C, ws)
@@ -56,6 +54,14 @@ def test_fused_losses_match_jax_kernels(H, W, C, ws, loss):
     want, want_grad = jax.value_and_grad(jax_fn)(jnp.asarray(x), jnp.asarray(images))
     np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_grad), rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("loss", ["ncut", "boundary"])
+@pytest.mark.parametrize("H,W,C,ws", FUZZ_SHAPES[:1])
+def test_fused_losses_match_jax_kernels(H, W, C, ws, loss):
+    """The smallest fuzz shape; the two larger ones, whose interpret-mode
+    Pallas runs take most of the time, are in test_torch_window_fuzz.py."""
+    check_fused_losses(H, W, C, ws, loss)
 
 
 def test_images_get_no_gradient():

@@ -89,17 +89,19 @@ def seg_cases(data: int, model: int, weights: dict, step: tuple, epoch: tuple | 
     before = _numpy(full_state_dict(guarded.model))
     seg_train_step(guarded, images, masks, valid, mesh=mesh)
     after = _numpy(full_state_dict(guarded.model))
-    out["guard"] = {"applied_steps": opt.count, "notfinite": opt.notfinite_count,
+    out["guard"] = {"applied_steps": int(opt.count), "notfinite": int(opt.notfinite_count),
                     "moved": max(float(np.abs(after[n] - before[n]).max()) for n in names)}
 
     if epoch is not None:
         ep_images, ep_masks, batch, epochs, seed = epoch
-        run = seg_model_state(mesh, weights)
-        run, loss = train_segmentation_model(run, ep_images, ep_masks, num_epochs=epochs,
-                                             batch_size=batch, seg_size=ep_images.shape[1],
-                                             seed=seed, mesh=mesh, log=lambda *a: None)
-        out["epoch_loss"], out["epoch_state"] = loss, _numpy(full_state_dict(run.model))
-        out["epoch_steps"] = run.step
+        for name, K in (("epoch", 2), ("per_step", 1)):   # chunks of 2, and step by step
+            run = seg_model_state(mesh, weights)
+            run, loss = train_segmentation_model(run, ep_images, ep_masks, num_epochs=epochs,
+                                                 batch_size=batch, seg_size=ep_images.shape[1],
+                                                 seed=seed, mesh=mesh, steps_per_dispatch=K,
+                                                 log=lambda *a: None)
+            out[f"{name}_loss"], out[f"{name}_state"] = loss, _numpy(full_state_dict(run.model))
+            out[f"{name}_steps"] = run.step
     if evaluation is not None:
         out["eval"] = evaluate_segmentation_sharded(seg_model_state(mesh, weights).model,
                                                     *evaluation, mesh)

@@ -36,7 +36,7 @@ class SegModelHandle:
     is: ``model(x)["out"]`` gives NCHW logits for images in any layout (ref
     SegmentationModel.py:102), in eval mode and without gradient, on the
     model's device. ``.to(device)`` moves the model and its optimizer's
-    moments."""
+    moments and counters."""
 
     def __init__(self, module: DeepLabV3, state: SegTrainState, input_size: int = 256):
         self.module = module
@@ -60,9 +60,7 @@ class SegModelHandle:
     def to(self, device=None):
         dev = resolve_device(device)
         self.module.to(dev)
-        opt = self.state.optimizer
-        opt.m = [t.to(dev) for t in opt.m]
-        opt.v = [t.to(dev) for t in opt.v]
+        self.state.optimizer.to(dev)
         return self
 
 

@@ -20,13 +20,23 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+_IMAGENET = {}   # device → (mean, std): copied to a device once, so that a
+                 # captured CUDA graph's normalisation copies nothing from the host
+
+
+def _imagenet_stats(device: torch.device):
+    if device not in _IMAGENET:
+        _IMAGENET[device] = (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+                             torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+    return _IMAGENET[device]
+
+
 def normalize_images(x: torch.Tensor, channel_dim: int = -1) -> torch.Tensor:
     """ImageNet normalisation of float images along ``channel_dim``."""
     shape = [1] * x.ndim
     shape[channel_dim] = 3
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device).view(shape)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device).view(shape)
-    return (x - mean) / std
+    mean, std = _imagenet_stats(x.device)
+    return (x - mean.view(shape)) / std.view(shape)
 
 
 def preprocess_images(images: torch.Tensor, size: int, interpolation: str = "bilinear",

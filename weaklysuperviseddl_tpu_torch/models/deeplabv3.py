@@ -8,7 +8,9 @@ torchvision's ``deeplabv3_resnet50`` layout and state-dict keys:
     concat → 1x1 project → BN → ReLU → Dropout(0.5)
   * ``classifier.1-3``: 3x3 conv → BN → ReLU; ``classifier.4``: 1x1 conv to
     ``num_classes`` (with bias)
-  * bilinear upsample of the logits to the input size (align_corners=False)
+  * bilinear upsample of the logits to the input size (align_corners=False;
+    ``ops/resize.upsample_bilinear``, whose backward on the card does not
+    add with atomics, so that a training step is deterministic there)
 
 An ASPP branch's 3x3 atrous convolution (``AtrousConv``) runs the JAX
 ``_AtrousTapConv`` plan: where ``4·rate ≥ min(H, W)`` (every rate at the
@@ -26,10 +28,13 @@ backbone, the ASPP (its pooled branch too), the head and the classifier
 conv; the logits are cast to float32 before the bilinear resize, so every
 loss, softmax and evaluation downstream runs in float32, as in JAX.
 
-The ASPP's dropout (``Dropout``) draws its mask from a generator of its own on
-the input's device, never from torch's global random state: the training loop
-seeds it before each step (``seed_dropout``), so a run depends on its seed
-alone, as in the JAX package (whose keys come from the training call's seed).
+The ASPP's dropout (``Dropout``) draws its mask from a counter-based hash of
+its key and each element's index, never from torch's global random state; the
+key is a 0-dim tensor on the module's device, and the training loop sets it
+before each step (``seed_dropout``, from a host integer or from a device
+tensor inside a captured CUDA graph), so a run depends on its seed alone, as
+in the JAX package (whose keys come from the training call's seed), and the
+card and the CPU draw the same mask.
 ``bn_frozen=True`` is the JAX model's frozen-BN mode: in training every
 BatchNorm of the backbone, the ASPP and the head uses its running statistics
 and leaves them untouched, while its affines still learn and the dropout
@@ -42,7 +47,6 @@ from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from weaklysuperviseddl_tpu_torch.models.resnet import (
     BatchNorm2d,
@@ -50,54 +54,95 @@ from weaklysuperviseddl_tpu_torch.models.resnet import (
     ResNetBackbone,
     set_compute_dtype,
 )
+from weaklysuperviseddl_tpu_torch.ops.resize import upsample_bilinear
+
+
+_M64 = (1 << 64) - 1
+
+
+def _int64(v: int) -> int:
+    """A 64-bit pattern as the signed value an int64 tensor holds."""
+    v &= _M64
+    return v - (1 << 64) if v >> 63 else v
+
+
+_GOLDEN = _int64(0x9E3779B97F4A7C15)   # splitmix64's increment and multipliers
+_MIX1 = _int64(0xBF58476D1CE4E5B9)
+_MIX2 = _int64(0x94D049BB133111EB)
+_UNIT_BITS = 24                      # a draw is the top 24 bits of a hash
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 (torch's ``>>`` is arithmetic)."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finaliser on int64 tensors (products wrap modulo 2⁶⁴)."""
+    x = (x ^ _shr(x, 30)) * _MIX1
+    x = (x ^ _shr(x, 27)) * _MIX2
+    return x ^ _shr(x, 31)
+
+
+def keep_mask(key: torch.Tensor, shape, p: float, offset: int = 0) -> torch.Tensor:
+    """The dropout's keep mask of ``shape`` for a 0-dim int64 ``key``: element
+    i (row-major, counted from ``offset``) is kept where the top 24 bits of
+    splitmix64(key + (offset + i + 1)·γ) fall below (1 − p)·2²⁴. A pure
+    function of the key and the index, computed on the key's device."""
+    n = 1
+    for d in shape:
+        n *= d
+    idx = torch.arange(offset + 1, offset + n + 1, dtype=torch.int64, device=key.device)
+    draws = _shr(_mix64(key + idx * _GOLDEN), 64 - _UNIT_BITS)
+    return (draws < round((1.0 - p) * (1 << _UNIT_BITS))).view(shape)
 
 
 class Dropout(nn.Module):
     """``nn.Dropout``'s function (each unit kept with probability 1 − p and
     scaled by 1/(1 − p) in training, the identity otherwise; no state-dict
-    entries) with the mask drawn from ``self.generator``, a generator on the
-    input's device. ``manual_seed`` (re)seeds it; an unseeded module, or one
-    whose generator is on another device, seeds a new one with 0 at its first
-    training forward. A copy or a pickle of the module leaves the generator
-    out, so it starts unseeded.
+    entries) with the mask ``keep_mask(self.key, ...)``. ``key`` is a 0-dim
+    int64 buffer (not in the state dict) that moves with the module; each
+    draw replaces it by a hash of itself, so draws after one seed differ.
+    ``manual_seed`` sets it; an unseeded module draws from key 0.
 
     ``batch_shard`` (set for a training step on a batch split over the
     'data' axis): (D, d), the batch is shard d of D equal shards of a global
-    batch; the mask is drawn for the global batch and this shard's rows are
-    taken, so a seed gives the mask of the one-device step on that batch."""
+    batch; the mask is this shard's rows of the global batch's mask, so a
+    seed gives the mask of the one-device step on that batch."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = p
-        self.generator: torch.Generator | None = None
+        self.register_buffer("key", torch.zeros((), dtype=torch.int64), persistent=False)
         self.batch_shard: tuple[int, int] | None = None
 
-    def __getstate__(self):
-        return {**self.__dict__, "generator": None}
-
-    def manual_seed(self, seed: int, device: torch.device):
-        if self.generator is None or self.generator.device != device:
-            self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(seed)
+    @torch.no_grad()
+    def manual_seed(self, seed, device: torch.device | None = None):
+        """Set the key from a host integer (any 64-bit pattern) or a 0-dim
+        integer tensor; ``device`` moves the key there first."""
+        if device is not None and self.key.device != torch.device(device):
+            self.key = self.key.to(device)
+        if isinstance(seed, torch.Tensor):
+            self.key.copy_(seed)
+        else:
+            self.key.fill_(_int64(int(seed)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        if self.generator is None or self.generator.device != x.device:
-            self.manual_seed(0, x.device)
-        if self.batch_shard is None:
-            keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
-        else:
-            D, d = self.batch_shard
-            b = x.shape[0]
-            keep = x.new_empty((D * b, *x.shape[1:])).bernoulli_(1.0 - self.p,
-                                                                generator=self.generator)
-            keep = keep[d * b:(d + 1) * b]
-        return x * keep.div_(1.0 - self.p)
+        if self.key.device != x.device:
+            self.key = self.key.to(x.device)
+        offset = 0 if self.batch_shard is None else self.batch_shard[1] * x.numel()
+        keep = keep_mask(self.key, x.shape, self.p, offset)
+        with torch.no_grad():
+            self.key.copy_(_mix64(self.key + _GOLDEN))
+        return x * keep.to(x.dtype).div_(1.0 - self.p)
 
 
-def seed_dropout(model: nn.Module, seed: int):
-    """Seed every ``Dropout`` of ``model`` on the device of its parameters."""
+def seed_dropout(model: nn.Module, seed):
+    """Seed every ``Dropout`` of ``model`` on the device of its parameters,
+    from a host integer or a 0-dim integer tensor (a device tensor keeps the
+    seeding free of host copies, as a captured CUDA graph needs)."""
     device = next(model.parameters()).device
     for m in model.modules():
         if isinstance(m, Dropout):
@@ -215,8 +260,7 @@ class DeepLabV3(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.classifier(self.backbone(x)["layer4"])
-        return F.interpolate(y.float(), size=x.shape[-2:], mode="bilinear",
-                             align_corners=False)
+        return upsample_bilinear(y.float(), x.shape[-2:])
 
     def logits_nhwc(self, x: torch.Tensor) -> torch.Tensor:
         """[B,H,W,3] → [B,H,W,num_classes], as the JAX model's ``apply``."""

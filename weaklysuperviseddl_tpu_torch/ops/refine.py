@@ -48,6 +48,7 @@ from weaklysuperviseddl_tpu_torch.losses.window import (
 )
 from weaklysuperviseddl_tpu_torch.ops.build import build, stream_handle
 from weaklysuperviseddl_tpu_torch.ops.window import spatial_table
+from weaklysuperviseddl_tpu_torch.utils.graphs import count_launch
 
 SOURCE = "refine.cu"
 MAX_CLASSES = 4      # the kernel's compile-time class counts: 2, 3, 4
@@ -224,11 +225,13 @@ def refine_cuda(S, images, masks, lambda_boundary=0.1, threshold=0.5, lr=1e-2,
             ctypes.addressof(spatial), stream)
     if err != 0:
         raise RuntimeError(f"refine launch failed with cudaError {err}")
-    refine_cuda.launches += 1
-    refine_cuda.plan_launches[plan] += 1
+    count_launch(refine_cuda, plan)
     return out, loss_acc.mean()
 
 
-refine_cuda.launches = 0  # batches refined by the kernel since the last reset
-refine_cuda.plan_launches = dict.fromkeys(PLANS, 0)  # the same, by the plan that ran
+# batches refined by the kernel since the last reset, and the same by the plan
+# that ran; a launch inside a captured CUDA graph counts at each of its replays
+# (utils/graphs.count_launch)
+refine_cuda.launches = 0
+refine_cuda.plan_launches = dict.fromkeys(PLANS, 0)
 

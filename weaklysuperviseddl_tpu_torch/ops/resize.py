@@ -8,6 +8,11 @@
   whenever the kernel is not narrowed, i.e. with antialias or when upsizing.
   Downsizing without antialias runs the same kernel unscaled, as a separable
   weight matrix, since ``F.interpolate`` has no such mode (it uses a = -0.75).
+* ``upsample_bilinear``: ``F.interpolate(mode="bilinear",
+  align_corners=False)`` on NCHW, whose backward on the card is the adjoint
+  as two products with the interpolation's weight matrices in float64, in a
+  fixed order, where CUDA's own backward adds with atomics and so parts
+  from itself between runs.
 * ``resize_nearest``: ``torch_legacy=True`` is ``F.interpolate(mode="nearest")``
   (``src = floor(dst * in/out)``); ``False`` uses half-pixel centres, as PIL's
   NEAREST does. Both as a gather.
@@ -64,6 +69,52 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int], antialias: bool = Fa
     y = F.interpolate(y, size=tuple(size), mode="bilinear", align_corners=False,
                       antialias=antialias)
     return _restore_dtype(back(y), x)
+
+
+def _bilinear_weights(in_n: int, out_n: int, device, dtype) -> torch.Tensor:
+    """[out_n, in_n] float64 weights of ``F.interpolate``'s bilinear rule
+    (align_corners=False, size given) for inputs of ``dtype``: source
+    ``max((o + 0.5)·in/out − 0.5, 0)`` in torch's accumulate type (float64
+    for float64, else float32), its floor and the next index (the last one
+    twice at the edge) weighted 1 − λ and λ."""
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    # in/out divided on the device: no host copy (it may run inside a capture)
+    scale = (torch.full((), in_n, dtype=acc, device=device)
+             / torch.full((), out_n, dtype=acc, device=device))
+    src = ((torch.arange(out_n, dtype=acc, device=device) + 0.5) * scale - 0.5).clamp(min=0)
+    i0 = src.long()
+    i1 = (i0 + 1).clamp(max=in_n - 1)
+    lam = src - i0
+    w = torch.zeros(out_n, in_n, dtype=torch.float64, device=device)
+    w.scatter_add_(1, i0[:, None], (1.0 - lam).double()[:, None])
+    w.scatter_add_(1, i1[:, None], lam.double()[:, None])
+    return w
+
+
+class _UpsampleBilinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.in_size = tuple(x.shape[-2:])
+        return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        (in_h, in_w), (out_h, out_w) = ctx.in_size, g.shape[-2:]
+        wh = _bilinear_weights(in_h, out_h, g.device, g.dtype)
+        ww = _bilinear_weights(in_w, out_w, g.device, g.dtype)
+        return (wh.t() @ (g.double() @ ww)).to(g.dtype), None
+
+
+def upsample_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """[B,C,h,w] → [B,C,H,W] bilinear, half-pixel centres: ``F.interpolate``'s
+    values. Its gradient on the card is the same adjoint computed without
+    atomics (a float64 product with each axis's weight matrix), so a training
+    step gives the same bits in every run and in a captured graph; on the CPU
+    torch's own backward, which is already deterministic."""
+    size = tuple(size)
+    if x.is_cuda and torch.is_grad_enabled() and x.requires_grad:
+        return _UpsampleBilinear.apply(x, size)
+    return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
 
 
 def _keys_cubic(d: torch.Tensor) -> torch.Tensor:

@@ -56,7 +56,10 @@ from weaklysuperviseddl_tpu_torch.parallel.mesh import (
     mesh_from_config,
     replicate_tree,
 )
-from weaklysuperviseddl_tpu_torch.train.alternating import run_alternating_training
+from weaklysuperviseddl_tpu_torch.train.alternating import (
+    run_alternating_training,
+    upload_store_resident,
+)
 from weaklysuperviseddl_tpu_torch.train.classifier import train_fc_only
 from weaklysuperviseddl_tpu_torch.train.segmentation import (
     LOSSES,
@@ -75,6 +78,10 @@ class WeaklySupervisedResult:
     mask_store: Any
     metrics: dict = field(default_factory=dict)
     test_arrays: Any = None
+    # the store on the device as stage 4 trained on it (images, masks at
+    # seg_size, keys): the alternating loop continues on these tensors, so
+    # its training replays the graphs captured for stage 4
+    resident: Any = None
 
 
 def check_supported(cfg: ExperimentConfig):
@@ -218,10 +225,10 @@ def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch
     if seg_weights is not None:
         seg_state.model.load_state_dict(local_state_dict(seg_state.model, seg_weights),
                                         strict=True)
-    images, masks, _ = store.as_arrays()
     with sw.phase("seg_training", images=len(store) * cfg.seg.epochs):
+        resident = upload_store_resident(store, d.seg_size, dev)
         seg_state, final_loss = train_segmentation_model(
-            seg_state, images, masks, loss_fn=cfg.seg.loss_fn, num_epochs=cfg.seg.epochs,
+            seg_state, *resident[:2], loss_fn=cfg.seg.loss_fn, num_epochs=cfg.seg.epochs,
             batch_size=cfg.seg.batch_size, seg_size=d.seg_size, seed=cfg.seed, log=log,
             mesh=mesh)
 
@@ -231,7 +238,7 @@ def run_weakly_supervised(cfg: ExperimentConfig, log=print, stopwatch: Stopwatch
             seg_state.model, *test_arrays, batch_size=d.eval_batch_size, seg_size=d.seg_size,
             eval_size=d.image_size, log=log)
     metrics = {"iou": avg_iou, "acc": avg_acc, "final_loss": final_loss}
-    return WeaklySupervisedResult(model, seg_state, store, metrics, test_arrays)
+    return WeaklySupervisedResult(model, seg_state, store, metrics, test_arrays, resident)
 
 
 def run_weakly_supervised_alternating(cfg: ExperimentConfig, checkpoint_dir: str | None = None,
@@ -290,7 +297,7 @@ def run_weakly_supervised_alternating(cfg: ExperimentConfig, checkpoint_dir: str
         result.seg_state, result.mask_store, cfg, eval_fn=eval_fn,
         eval_images=int(test_arrays[0].shape[0]), checkpoint_dir=checkpoint_dir,
         start_iteration=start_iteration, stopwatch=sw, trajectory=trajectory, log=log,
-        mesh=mesh)
+        mesh=mesh, resident=result.resident)
     iou, acc = eval_fn(state)
     result.seg_state, result.mask_store = state, store
     result.metrics.update({"alt_iou": iou, "alt_acc": acc, "trajectory": trajectory})

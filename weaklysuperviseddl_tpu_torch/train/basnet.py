@@ -129,7 +129,10 @@ def make_basnet_train_step(model: torch.nn.Module, optimizer: Adam,
     the optional global-norm clip, then Adam at ``schedule(step)`` (steps
     counted from 0; the optimizer's own lr without one). ``step(images,
     targets)`` takes normalised [B,3,H,W] images and [B,H,W] {0,1} targets and
-    returns the loss (0-dim, on the device)."""
+    returns the loss (0-dim, on the device). The schedule reads a host copy
+    of Adam's step count, taken once here (the unguarded Adam applies every
+    step), so a step reads nothing back."""
+    applied = [int(optimizer.count)]
 
     def step(images: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         model.train()
@@ -139,8 +142,9 @@ def make_basnet_train_step(model: torch.nn.Module, optimizer: Adam,
         if clip_norm is not None:
             clip_by_global_norm(optimizer._grads(), clip_norm)
         if schedule is not None:
-            optimizer.lr = schedule(optimizer.count)
+            optimizer.lr = schedule(applied[0])
         optimizer.step()
+        applied[0] += 1
         return loss.detach()
 
     return step

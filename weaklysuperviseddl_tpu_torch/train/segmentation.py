@@ -15,10 +15,12 @@ gradients and Adam's state are float32, its forward and backward run in
 bfloat16, and its logits come back float32, so the losses, the predictions
 and the evaluators are float32.
 
-The ASPP's dropout is seeded before every step from (seed + 1, epoch, step)
+The ASPP's dropout is keyed before every step from (seed + 1, epoch, step)
 through ``dropout_seed``, a fixed integer mix, so ``seed`` alone fixes a run
 in any process, as the JAX package's keys (``PRNGKey(seed + 1)``, split per
 epoch, folded with the step) do; the bits differ from JAX's threefry.
+``train_segmentation_model`` runs its steps in chunks of ``steps_per_dispatch``
+as JAX's epoch programs do, each chunk one replay of a CUDA graph on the card.
 
 On a ('data', 'model') mesh (``parallel/mesh.py``), as JAX lays it out:
 ``create_seg_state(mesh=)`` shards the conv output channels on 'model'
@@ -45,6 +47,7 @@ every counter.
 from __future__ import annotations
 
 import contextlib
+import weakref
 from dataclasses import dataclass
 from typing import Any
 
@@ -61,6 +64,8 @@ from weaklysuperviseddl_tpu_torch.ops.resize import resize_nearest
 from weaklysuperviseddl_tpu_torch.parallel.collectives import all_reduce_value
 from weaklysuperviseddl_tpu_torch.parallel.mesh import shard_batch, shard_params_tp
 from weaklysuperviseddl_tpu_torch.train.guard import GuardedAdam
+from weaklysuperviseddl_tpu_torch.utils.cache import BoundedCache
+from weaklysuperviseddl_tpu_torch.utils.graphs import Captured, capture, warm_up
 from weaklysuperviseddl_tpu_torch.utils.metrics import (
     binary_confusion_counts,
     compute_iou_and_acc,
@@ -165,6 +170,16 @@ def seg_train_step(state: SegTrainState, images: torch.Tensor, masks: torch.Tens
     Σ_global(per-example loss · valid) / max(Σ_global valid, 1) (every rank
     returns it), and the gradients are summed over the axis: the step is the
     one-device step on the global batch."""
+    loss = _train_step(state, images, masks, valid, loss_fn, mesh)
+    state.step += 1
+    return loss
+
+
+def _train_step(state: SegTrainState, images: torch.Tensor, masks: torch.Tensor,
+                valid: torch.Tensor, loss_fn: str, mesh) -> torch.Tensor:
+    """``seg_train_step`` without the host's step count: every operation
+    runs on the device and nothing is read back, so a CUDA graph can hold
+    it."""
     if loss_fn not in LOSSES:
         raise ValueError(f"unknown loss_fn {loss_fn!r}; expected one of {LOSSES}")
     model = state.model
@@ -188,7 +203,6 @@ def seg_train_step(state: SegTrainState, images: torch.Tensor, masks: torch.Tens
         _sum_gradients(state.optimizer.params, group)
         loss = all_reduce_value(loss, group)
     state.optimizer.step()
-    state.step += 1
     return loss.detach()
 
 
@@ -205,16 +219,199 @@ def _prep(raw: torch.Tensor, m: torch.Tensor, seg_size: int):
     return x, m
 
 
+def _epoch_table(order_rows, b: int, seeds) -> np.ndarray:
+    """[T, 2b+1] int64 rows [indices b | valid b | dropout seed] of one epoch:
+    ``order_rows`` is a list of T index arrays of at most b entries (a short
+    one repeats its last index, with valid 0), ``seeds`` the T dropout seeds
+    (64-bit patterns, stored as int64)."""
+    T = len(order_rows)
+    table = np.zeros((T, 2 * b + 1), np.int64)
+    for t, idx in enumerate(order_rows):
+        nv = len(idx)
+        table[t, :nv] = idx
+        table[t, nv:b] = idx[-1]
+        table[t, b:b + nv] = 1
+    table[:, 2 * b] = np.asarray(seeds, np.uint64).view(np.int64)
+    return table
+
+
+def _stage(table: np.ndarray, dev) -> torch.Tensor:
+    """One host-to-device copy of an epoch's table (pinned and asynchronous
+    on the card, so that the host runs ahead)."""
+    t = torch.from_numpy(table)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def _table_step(state: SegTrainState, images, masks, row: torch.Tensor, b: int, seg_size: int,
+                loss_fn: str, mesh, acc: torch.Tensor):
+    """One training step from a table row [indices b | valid b | seed]:
+    gather from the resident dataset, ``_prep``, the dropout keyed by the
+    row's seed, ``_train_step``; its loss is added into ``acc``. Every
+    operand lives on the device, so the step reads nothing back."""
+    idx = row[:b]
+    x, m = _prep(images[idx], masks[idx], seg_size)
+    seed_dropout(state.model, row[2 * b])
+    acc.add_(_train_step(state, x, m, row[b:2 * b] != 0, loss_fn, mesh))
+
+
+def _state_tensors(state: SegTrainState) -> list[torch.Tensor]:
+    """Every tensor a training step reads and writes in place: parameters,
+    buffers (BatchNorm statistics, the dropout key), Adam's moments and its
+    counters."""
+    opt = state.optimizer
+    return [*state.model.parameters(), *state.model.buffers(), *opt.m, *opt.v, opt.count,
+            opt.notfinite_count, opt.total_notfinite]
+
+
+def _addresses(tensors) -> tuple:
+    return tuple((t.data_ptr(), t.dtype, tuple(t.shape), t.stride()) for t in tensors)
+
+
+class _EagerEpochs:
+    """The chunk's steps in order, op by op: the CPU, and a mesh of more than
+    one rank (collectives inside a captured graph would need NCCL's graph
+    support, which one card cannot check)."""
+
+    def __init__(self, b, seg_size, loss_fn, mesh, device):
+        self.b, self.seg_size, self.loss_fn, self.mesh = b, seg_size, loss_fn, mesh
+        self.acc = torch.zeros((), device=device)
+
+    def run(self, rows: torch.Tensor, state, images, masks):
+        for row in rows:
+            _table_step(state, images, masks, row, self.b, self.seg_size, self.loss_fn,
+                        self.mesh, self.acc)
+
+
+class _GraphEpochs:
+    """The card's epoch programs: a CUDA graph of K steps (JAX's
+    ``chunk_step``) and one of a single step (``single_step``, for the
+    ragged tail and a partly valid step), each replayed from a static table
+    that a device-to-device copy refills. Both gather from the resident
+    dataset they were captured on (its addresses are part of ``fits``: the
+    alternations pass the same tensors and replay) and add their losses into
+    one accumulator. Captured at first use, after one warm-up step on a side
+    stream whose effects are undone; they hold no reference to the state or
+    the dataset (only weak ones to the state), so the cache entry dies with
+    its optimizer."""
+
+    def __init__(self, state, images, masks, b, seg_size, loss_fn, K):
+        self.b, self.seg_size, self.loss_fn = b, seg_size, loss_fn
+        dev = images.device
+        self.acc = torch.zeros((), device=dev)
+        self.tables = {k: torch.zeros((k, 2 * b + 1), dtype=torch.int64, device=dev)
+                       for k in {1, K}}
+        self.graphs: dict[int, Captured] = {}
+        self.stream = torch.cuda.Stream(dev)
+        self.warm = False
+        self.model = weakref.ref(state.model)
+        self.optimizer = weakref.ref(state.optimizer)
+        self.fingerprint = self._fingerprint(state, images, masks)
+
+    @staticmethod
+    def _fingerprint(state, images, masks) -> tuple:
+        return _addresses([*_state_tensors(state), images, masks])
+
+    def fits(self, state, images, masks) -> bool:
+        """Whether the graphs were captured on this state's tensors and this
+        dataset, at the addresses they have now."""
+        return (self.model() is state.model and self.optimizer() is state.optimizer
+                and self.fingerprint == self._fingerprint(state, images, masks))
+
+    def _step(self, state, images, masks, row):
+        _table_step(state, images, masks, row, self.b, self.seg_size, self.loss_fn, None,
+                    self.acc)
+
+    def _capture(self, k: int, state, images, masks):
+        table = self.tables[k]
+        if not self.warm:
+            def one_step():
+                self._step(state, images, masks, table[0])
+                state.optimizer.zero_grad()
+
+            warm_up(one_step, self.stream, [*_state_tensors(state), self.acc])
+            self.warm = True
+        state.optimizer.zero_grad()       # the gradients come from the graph's pool
+        self.graphs[k] = capture(
+            lambda: [self._step(state, images, masks, table[i]) for i in range(k)], self.stream)
+        state.optimizer.zero_grad()       # ... and stay there, out of the state
+
+    def run(self, rows: torch.Tensor, state, images, masks):
+        k = rows.shape[0]
+        self.tables[k].copy_(rows)
+        if k not in self.graphs:
+            self._capture(k, state, images, masks)
+        self.graphs[k].replay()
+
+    @property
+    def capture_seconds(self) -> dict:
+        return {k: g.capture_seconds for k, g in self.graphs.items()}
+
+
+# Epoch programs memoised across train_segmentation_model calls, as JAX's
+# _EPOCH_PROGRAMS: an alternating run captures its graphs once and replays them
+# in every alternation. Keyed on the state's model and optimizer (by identity:
+# a graph writes their tensors), the loss, seg_size, the batch, K, the learning
+# rate and the math flags that pick cuDNN's and cuBLAS's kernels; an entry whose
+# state tensors or dataset moved (another dataset, or another upload of it) is
+# captured again.
+# LRU-bounded, and each entry is dropped when its optimizer is collected, so
+# graphs and their memory pools cannot pile up.
+_EPOCH_PROGRAMS = BoundedCache(maxsize=16)
+
+
+def _math_flags() -> tuple:
+    return (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+
+def _epoch_programs(state, images, masks, b, seg_size, loss_fn, K) -> _GraphEpochs:
+    """The cached ``_GraphEpochs`` of this state and configuration, made anew
+    where there is none, or its state tensors or dataset are not those it
+    was captured on."""
+    key = (id(state.model), id(state.optimizer), loss_fn, seg_size, b, K,
+           state.optimizer.lr, _math_flags())
+    prog = _EPOCH_PROGRAMS.get(key)
+    if prog is None or not prog.fits(state, images, masks):
+        prog = _GraphEpochs(state, images, masks, b, seg_size, loss_fn, K)
+        _EPOCH_PROGRAMS.put(key, prog)
+        weakref.finalize(state.optimizer, _EPOCH_PROGRAMS.discard, key)
+    return prog
+
+
 def train_segmentation_model(state: SegTrainState, images, masks,
                              loss_fn: str = "cross_entropy", num_epochs: int = 10,
                              batch_size: int = 4, seg_size: int = 256, seed: int = 0,
-                             run_id: str = "default", eval_fn=None, log=print, mesh=None):
+                             run_id: str = "default", eval_fn=None, mesh=None,
+                             steps_per_dispatch: int = 8, log=print):
     """Epoch loop over an in-memory pseudo-mask dataset (images [N,H,W,3]
     uint8, masks [N,H,W] {0,1}; numpy or tensors). The per-epoch order is
     ``np.random.default_rng(seed).permutation`` as in the JAX package, and the
-    dropout is seeded before step t of epoch e with ``dropout_seed(seed + 1,
-    e, t)``. The printout follows SegmentationModel.py:116-120. Returns
-    (state, the last epoch's summed loss).
+    dropout of step t of epoch e is keyed by ``dropout_seed(seed + 1, e, t)``.
+    The printout follows SegmentationModel.py:116-120. Returns (state, the last
+    epoch's summed loss).
+
+    The dataset is uploaded once and every batch is a gather on the device by
+    indices. Each epoch's [T, 2B+1] table (indices, valid rows, dropout
+    seeds) goes to the device in one copy, and the summed loss is a device
+    scalar read back once an epoch.
+
+    ``steps_per_dispatch`` (K, JAX's default 8): on the card, full chunks of
+    K steps run as one replay of a captured CUDA graph, and the ragged tail,
+    a partly valid step among it, as replays of a one-step graph; a chunk
+    reads nothing back (the guard decides on the device) and launches
+    nothing from the host but the replay. The graphs are captured at first
+    use and kept for the state (``_EPOCH_PROGRAMS``). A capture or replay
+    that fails raises; a capture fails while the caller holds an autograd
+    graph over the parameters (say a clone made with gradients on), since
+    autograd then accumulates their gradients on that graph's stream. On
+    the CPU, and on a mesh of more than one rank, every step runs op by op
+    in the same order. The dropout keys are the global step's, so the
+    grouping changes no result: any K trains to the same bits as K = 1. The
+    card's graphs run the eager step's kernels, so under
+    ``cudnn.deterministic`` they give an eager loop of ``seg_train_step``'s
+    bits (DeepLabV3's upsample has no atomics in its backward).
 
     ``mesh``: JAX's data-parallel layout. Each rank takes shard d of the
     dataset wrapped around to D·n_local rows (n_local = ceil(N / D)), and
@@ -240,33 +437,40 @@ def train_segmentation_model(state: SegTrainState, images, masks,
         d = mesh.index("data")
         rows = (torch.arange(d * n_local, (d + 1) * n_local) % n).to(dev)  # wrap-around padding
         images, masks = images[rows], masks[rows]
-        local_batch = batch_size // D
-        T = -(-n_local // local_batch)
+        b = batch_size // D
+        T = -(-n_local // b)
     else:
-        T = -(-n // batch_size)
+        b = batch_size
+        T = -(-n // b)
+    K = max(1, steps_per_dispatch)
+    graphed = dev.type == "cuda" and (mesh is None or mesh.size == 1)
+    if graphed:
+        prog = _epoch_programs(state, images, masks, b, seg_size, loss_fn, K)
+    else:
+        prog = _EagerEpochs(b, seg_size, loss_fn, mesh if dp else None, dev)
     rng = np.random.default_rng(seed)
     final_loss = 0.0
     for epoch in range(num_epochs):
         if dp:
-            orders = np.stack([rng.permutation(n_local) for _ in range(D)])
+            order = np.stack([rng.permutation(n_local) for _ in range(D)])[d]
         else:
             order = rng.permutation(n)
-        total = torch.zeros((), device=dev)
-        for t in range(T):
-            if dp:
-                idx = orders[d, t * local_batch:(t + 1) * local_batch]
-                nv, b = len(idx), local_batch
-            else:
-                idx = order[t * batch_size:(t + 1) * batch_size]
-                nv, b = len(idx), batch_size
-            if nv < b:
-                idx = np.concatenate([idx, np.repeat(idx[-1], b - nv)])
-            idx_t = torch.from_numpy(idx).to(dev)
-            x, m = _prep(images[idx_t], masks[idx_t], seg_size)
-            valid = torch.arange(b, device=dev) < nv
-            seed_dropout(state.model, dropout_seed(seed + 1, epoch, t))
-            total = total + seg_train_step(state, x, m, valid, loss_fn, mesh if dp else None)
-        final_loss = float(total)
+        table = _epoch_table([order[t * b:(t + 1) * b] for t in range(T)], b,
+                             [dropout_seed(seed + 1, epoch, t) for t in range(T)])
+        dev_table = _stage(table, dev)
+        prog.acc.zero_()
+        # full chunks of K steps run as one dispatch; the ragged tail (and a
+        # partly valid last step) as single steps, as in JAX
+        full_T = T if table[-1, b:2 * b].all() else T - 1
+        cursor = 0
+        while K > 1 and cursor + K <= full_T:
+            prog.run(dev_table[cursor:cursor + K], state, images, masks)
+            state.step += K
+            cursor += K
+        for t in range(cursor, T):
+            prog.run(dev_table[t:t + 1], state, images, masks)
+            state.step += 1
+        final_loss = float(prog.acc)
         log(f"[Run {run_id}] Epoch {epoch + 1}/{num_epochs}, Loss: {final_loss:.4f}")
         if eval_fn is not None:
             avg_iou, avg_acc = eval_fn(state)

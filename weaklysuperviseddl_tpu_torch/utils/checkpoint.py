@@ -5,8 +5,10 @@ optimizer state, step count or resume. Here:
 
   * ``save_state``/``restore_state`` keep a whole training state (the
     model's ``state_dict`` with its BatchNorm statistics, the optimizer's
-    moments and counters, ``step``) in one ``torch.save`` file, read back with
-    ``torch.load(weights_only=True)`` and checked against a template;
+    moments and its device counters as 0-dim tensors, ``step``) in one
+    ``torch.save`` file, read back with ``torch.load(weights_only=True)`` and
+    checked against a template (files with the counters as ints, written
+    before they moved to the device, still load);
   * ``save_alternation``/``restore_alternation`` keep the alternating loop's
     state per alternation: ``alt_NNN/state.pt`` and the mask store as
     ``alt_NNN/masks.npz`` (``MaskStore.save_arrays``), written into
@@ -60,12 +62,17 @@ def save_state(path: str, state_tree) -> None:
 
 
 def _structure(tree):
-    """The tree's keys, list lengths and tensor shapes and dtypes."""
+    """The tree's keys, list lengths and tensor shapes and dtypes. A counter
+    is "int" whether it is a Python int or a 0-dim integer tensor: the
+    optimizer's counters are device tensors, and snapshots written before
+    they were hold ints."""
     if isinstance(tree, dict):
         return {k: _structure(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_structure(v) for v in tree]
     if isinstance(tree, torch.Tensor):
+        if tree.ndim == 0 and not tree.is_floating_point() and tree.dtype != torch.bool:
+            return "int"
         return (tuple(tree.shape), tree.dtype)
     return type(tree).__name__
 
