@@ -22,6 +22,15 @@ Phases, one JSON line each:
                served in), predict_many throughput, request latency, and a
                stage breakdown of one batch of 64. The kernel's launch count is
                reset just before this main path is driven and read just after.
+  4a. goldens - the host goldens (native/wsdl_native.cpp, the port's copy of
+               the JAX package's C++, built with g++ in the phase; a failed
+               build fails it): K2's labels and keep-largest on the served
+               [64,256,256] argmax and on every mask family at [64,256,256]
+               against the union-find image by image (equal); the attention
+               CRF (K3) on 2 pets at 64² against the O(N²) exact CRF (mean
+               error < 1e-4, argmax equal off near-ties); the lattice CRF on
+               4 pets at 224² against the golden lattice CRF (argmax >=
+               0.99); the reference's CRF parameters; the goldens' host ms.
   5. serve_int8 - the same model quantized by the port's int8 PTQ
                (Predictor.quantize on 64 synthetic pets, as the CLI without
                --calib-dir): 77 sites (58 conv, 19 ASPP taps); one forward at
@@ -35,7 +44,7 @@ Phases, one JSON line each:
                on rows 0, 1, 62 and 63 of the first batch-64 launch (>= 0.995);
                int8 against float32 masks; predict_many img/s and the model's
                ms an image, float32 and int8, at every bucket: img/s over a
-               window of at least 256 images and about 2 s, 3 times, each as
+               window of at least 256 images and about 1 s, 3 times, each as
                its median, least and largest reading.
   6. refine  - the refinement kernel against its plain PyTorch version on the
                card: at [2,16,16], [1,20,24] and [2,37,53], both losses, C=2 and
@@ -129,8 +138,14 @@ Phases, one JSON line each:
                dict, Adam moments and counters, step, the store), K1 once per
                sweep batch of the continuation, all v1sym (counts reset just
                before, read just after), the final masks >= 0.995 equal to the
-               uninterrupted run's (bit equality reported: cuDNN's backward is
-               not bitwise deterministic); snapshot MB and checkpoint seconds.
+               uninterrupted run's (bit equality reported: the weakly phase ran
+               without cudnn.deterministic); snapshot MB and checkpoint
+               seconds. Then a deterministic pair under cudnn.deterministic,
+               cut to 32 pets, 1 classifier epoch and 1 sweep a round: an
+               uninterrupted run at two alternations and a resume from a copy
+               of its alt_000, bit-equal in final masks, segmentation state
+               (parameters, BatchNorm statistics, Adam's moments and
+               counters, step) and alt_iou.
  14. serve_checkpoint - Predictor(clean=True, packed=True) over the weakly
                run's last snapshot, loaded by the CLI's loader, and over its
                in-memory final model: masks equal on one batch of 64 at 256²; K2
@@ -159,18 +174,21 @@ Phases, one JSON line each:
                kernel; a cut of the demo's training recipe (64 pets x 30 epochs,
                batch 8): img/s, ms a step, peak memory, the loss falling and the
                held-out IoU above random init's.
- 18. bf16    - the bfloat16 compute dtype. K5 on the bfloat16 classifier's own
-               layer3 and layer4 activations and gradients (32 pets, 224²):
-               bit-equal to K5 on their float32 upcasts, within 1e-6 of
-               plain, two launches identical, timed beside its bound (bytes
-               of bfloat16 inputs) and beside the float32 launch; the path,
-               layercam(fusion="pallas") on that classifier, with the counts
-               by input type reset just before and read just after (2
-               bfloat16 launches); the weakly phase's cut cycle with
-               classifier.dtype = seg.dtype = bfloat16 (K1 and K2 counted),
-               its trained models against float32 builds of the same
-               weights (pseudo-masks of 32 pets and DeepLabV3's argmax on 8,
-               each >= 0.99); a segmentation step at batch 4 and BASNet (a
+ 18. bf16    - the 16-bit compute dtypes, bfloat16 and float16 each: K5 on
+               the 16-bit classifier's own layer3 and layer4 activations and
+               gradients (32 pets, 224²): bit-equal to K5 on their float32
+               upcasts, within 1e-6 of plain, two launches identical, timed
+               beside its bound (bytes of 16-bit inputs) and beside the
+               float32 launch; the path, layercam(fusion="pallas") on that
+               classifier, with the counts by input type reset just before
+               and read just after (2 launches of the type); the weakly
+               phase's cut cycle with classifier.dtype = seg.dtype = the type
+               (K1 and K2 counted), its final masks against the float32
+               weakly run's (agreement reported), its trained models against
+               float32 builds of the same weights (pseudo-masks of 32 pets
+               and DeepLabV3's argmax on 8, each >= 0.99); the float16 step
+               at batch 4 eager and graphed (chunks of 8: events, device and
+               host ms, capture s, peak GB); a segmentation step at batch 4 and BASNet (a
                forward at batch 16, a train step at batch 8) in float32, TF32
                (flags on for that measurement only) and bfloat16: ms, img/s,
                peak GB; BASNet's bfloat16 saliency masks against float32's
@@ -455,6 +473,102 @@ def phase_build():
     seconds = time.perf_counter() - t0
     ptxas = {lib.name: ptxas_summary(lib.with_suffix(".log").read_text()) for lib in libs}
     emit("build", sources=sources, seconds=round(seconds, 3), ptxas=ptxas)
+
+
+def golden_crf_inputs(n: int, size: int, seed: int):
+    """n synthetic pets at size² as uint8 RGB, and a noisy CAM of each pet's
+    foreground (0.7 inside, 0.3 outside, ±0.25 uniform noise, clipped to
+    [0.02, 0.98]) as the CRF's probs [n,size,size,2] and the golden's unary
+    -log(probs)."""
+    from weaklysuperviseddl_tpu_torch.data.synthetic import synthetic_pet_arrays
+
+    images, _, trimaps = synthetic_pet_arrays(n, image_size=size, seed=seed)
+    rgb = np.round(images * 255).astype(np.uint8)
+    noise = np.random.default_rng(seed).uniform(-0.25, 0.25, trimaps.shape)
+    cam = np.clip(np.where(trimaps == 1, 0.7, 0.3) + noise, 0.02, 0.98).astype(np.float32)
+    probs = np.stack([1 - cam, cam], axis=-1)
+    return rgb, probs, -np.log(probs)
+
+
+def phase_goldens(served_masks):
+    """The card's kernels against the host goldens (native/wsdl_native.cpp,
+    the port's copy of the JAX package's C++, built with g++ here): K2's
+    labels and keep-largest on the served masks and every mask family
+    against the union-find image by image (equal); K3 through the attention
+    CRF against the O(N²) exact CRF at 64² (float-level); the lattice CRF at
+    the path's 224² against the golden lattice CRF (argmax >= 0.99). The
+    golden's host ms beside each. A golden that does not build fails here."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch import native
+    from weaklysuperviseddl_tpu_torch.masks import synthetic
+    from weaklysuperviseddl_tpu_torch.masks.components import keep_largest_batch
+    from weaklysuperviseddl_tpu_torch.masks.densecrf import densecrf_inference
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cuda
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+
+    t0 = time.perf_counter()
+    native.load_goldens()
+    build_s = time.perf_counter() - t0
+    params = {k: v for k, v in CRF_REFERENCE.items() if k not in ("bilat_backend", "key_stride")}
+
+    # ---- K2: the kernel's labels and keep-largest against the union-find ----
+    cases = {"served_argmax": served_masks.to(torch.uint8)}
+    for name in synthetic.FAMILIES:
+        cases[name] = torch.from_numpy(synthetic.family(name, 64, (256, 256), seed=13)).cuda()
+    cc = {}
+    for name, masks in cases.items():
+        labels = label_components_cuda(masks.contiguous()).cpu().numpy()
+        kept = keep_largest_batch(masks, backend="kernel").cpu().numpy()
+        host = masks.cpu().numpy()
+        t0 = time.perf_counter()
+        want = [(native.label_components(m), native.keep_largest(m)) for m in host]
+        golden_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+        label_equal = sum(np.array_equal(labels[i], w[0]) for i, w in enumerate(want))
+        kept_equal = sum(np.array_equal(kept[i], w[1]) for i, w in enumerate(want))
+        cc[name] = {"shape": list(host.shape), "labels_equal": f"{label_equal}/{len(host)}",
+                    "keep_largest_equal": f"{kept_equal}/{len(host)}",
+                    "golden_ms_per_image": golden_ms}
+        check(label_equal == kept_equal == len(host),
+              f"K2 against the union-find on {name}: {cc[name]}")
+
+    # ---- K3: the attention CRF on the card against the exact golden, 2 pets
+    # at 64², the reference's CRF ----
+    rgb, probs, unary = golden_crf_inputs(2, 64, seed=21)
+    before = gaussian_filter_cuda.launches
+    q = densecrf_inference(torch.from_numpy(probs).cuda(), torch.from_numpy(rgb).cuda(),
+                           bilat_backend="attention", **params).cpu().numpy()
+    check(gaussian_filter_cuda.launches > before, "the attention CRF did not launch K3")
+    t0 = time.perf_counter()
+    gold = np.stack([native.densecrf(unary[i], rgb[i], exact=True, **params)
+                     for i in range(len(rgb))])
+    exact_ms = (time.perf_counter() - t0) * 1e3 / len(rgb)
+    mae, err = float(np.abs(q - gold).mean()), float(np.abs(q - gold).max())
+    # pixels the golden leaves within 1e-3 of a tie may take either label
+    sure = np.abs(gold[..., 1] - 0.5) > 1e-3
+    agree_sure = float((q.argmax(-1) == gold.argmax(-1))[sure].mean())
+    attention = {"shape": list(probs.shape), "mae": mae, "max_abs_err": err,
+                 "argmax_agreement": float((q.argmax(-1) == gold.argmax(-1)).mean()),
+                 "argmax_agreement_off_ties": agree_sure, "near_ties": int((~sure).sum()),
+                 "golden_ms_per_image": exact_ms}
+    check(mae < 1e-4 and agree_sure == 1.0, f"attention CRF against the exact golden: "
+                                            f"{attention}")
+
+    # ---- the lattice backend at 224² against the golden lattice CRF ----
+    rgb, probs, unary = golden_crf_inputs(4, 224, seed=22)
+    q = densecrf_inference(torch.from_numpy(probs).cuda(), torch.from_numpy(rgb).cuda(),
+                           bilat_backend="lattice", **params).cpu().numpy()
+    t0 = time.perf_counter()
+    gold = np.stack([native.densecrf(unary[i], rgb[i], exact=False, **params)
+                     for i in range(len(rgb))])
+    lattice_ms = (time.perf_counter() - t0) * 1e3 / len(rgb)
+    agree = float((q.argmax(-1) == gold.argmax(-1)).mean())
+    lattice = {"shape": list(probs.shape), "argmax_agreement": agree,
+               "mae": float(np.abs(q - gold).mean()), "golden_ms_per_image": lattice_ms}
+    check(agree >= 0.99, f"lattice CRF against the golden lattice: {lattice}")
+    emit("goldens", library=native.goldens_library_path().name, build_s=build_s,
+         k2_against_union_find=cc, attention_crf_against_exact=attention,
+         lattice_crf_against_golden_lattice=lattice, crf_params=params)
 
 
 def cc_bound_ms(shape) -> float:
@@ -886,7 +1000,7 @@ def spread(values) -> dict:
 
 
 def bucket_times(model, qmodel, images, size: int, max_batch: int, repeats: int = 3,
-                 window_s: float = 2.0, min_images: int = 256) -> dict:
+                 window_s: float = 1.0, min_images: int = 256) -> dict:
     """For every serving bucket, float32 and int8 (the path's Predictor
     settings): predict_many img/s over a window of at least ``min_images``
     images and about ``window_s`` seconds (sized from a warm-up call),
@@ -1882,6 +1996,73 @@ def eager_epoch(state, images, masks, seed: int, batch: int = 4, seg_size: int =
     return watched
 
 
+def step_dispatch_times(state, images, masks, K: int, B: int) -> dict:
+    """One seg train state's training step at batch B, 256², eager
+    (seg_train_step: events, device and host ms) and graphed (chunks of K
+    steps through train_segmentation_model: ms a step, the capture's seconds,
+    the first call's, peak and reserved GB, a chunk replayed under sync-debug
+    mode "error", the graphed epoch's img/s over 3 epochs of ``images``)."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.train.segmentation import (
+        _epoch_programs,
+        _epoch_table,
+        _prep,
+        _stage,
+        dropout_seed,
+        seg_train_step,
+        train_segmentation_model,
+    )
+
+    N = len(images)
+    quiet = lambda *_: None  # noqa: E731
+    x, mm = _prep(images[:B], masks[:B], 256)
+    valid = torch.ones(B, dtype=torch.bool, device="cuda")
+    eager_step = lambda: seg_train_step(state, x, mm, valid)  # noqa: E731
+    eager = {"events_ms": cuda_ms(eager_step, runs=5, warmup=1),
+             "device_ms": device_ms(eager_step, runs=2, warmup=1)[0],
+             "host_ms": host_ms(eager_step, runs=3, warmup=1)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    train_segmentation_model(state, images, masks, num_epochs=1, batch_size=B,
+                             seg_size=256, seed=0, log=quiet)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    prog = _epoch_programs(state, images, masks, B, 256, "cross_entropy", K)
+    check(set(prog.graphs) == {K}, f"graphs {sorted(prog.graphs)} after one full-chunk epoch")
+    rows = _stage(_epoch_table([np.arange(t * B, (t + 1) * B) for t in range(K)], B,
+                               [dropout_seed(1, 0, t) for t in range(K)]),
+                  torch.device("cuda"))
+    chunk = lambda: prog.run(rows, state, images, masks)  # noqa: E731
+    graphed = {"events_ms": cuda_ms(chunk, runs=5, warmup=1) / K,
+               "device_ms": device_ms(chunk, runs=2, warmup=0)[0] / K,
+               "host_ms": host_ms(chunk, runs=10, warmup=1) / K,
+               "capture_s": prog.capture_seconds[K], "first_call_s": first_s,
+               "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+               "reserved_gb": torch.cuda.memory_reserved() / 2**30,
+               "before_gb": base_gb}
+    # a chunk with no host synchronisation in it: the copy of its rows
+    # and the replay under sync-debug mode "error"
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    graphed["sync_free_chunk"] = True
+    # epochs through the entry point: img/s of the graphed loop
+    t0 = time.perf_counter()
+    train_segmentation_model(state, images, masks, num_epochs=3, batch_size=B,
+                             seg_size=256, seed=1, log=quiet)
+    torch.cuda.synchronize()
+    graphed["epoch_img_per_s"] = 3 * N / (time.perf_counter() - t0)
+    return {"eager": eager, "graphed": graphed,
+            "events_speedup": eager["events_ms"] / graphed["events_ms"]}
+
+
 def graphed_dispatch(seg_model, store_images, store_masks) -> dict:
     """The training chunk as a CUDA graph against the eager seg_train_step,
     DeepLabV3-R50 at 256², batch 4, K = 8 (train_segmentation_model's
@@ -1899,12 +2080,6 @@ def graphed_dispatch(seg_model, store_images, store_masks) -> dict:
     from weaklysuperviseddl_tpu_torch.train.guard import GuardedAdam
     from weaklysuperviseddl_tpu_torch.train.segmentation import (
         SegTrainState,
-        _epoch_programs,
-        _epoch_table,
-        _prep,
-        _stage,
-        dropout_seed,
-        seg_train_step,
         train_segmentation_model,
     )
 
@@ -1921,53 +2096,7 @@ def graphed_dispatch(seg_model, store_images, store_masks) -> dict:
 
     # ---- timing, float32 and bfloat16 ----
     for dtype in ("float32", "bfloat16"):
-        state = fresh(dtype)
-        x, mm = _prep(images[:B], masks[:B], 256)
-        valid = torch.ones(B, dtype=torch.bool, device="cuda")
-        eager_step = lambda: seg_train_step(state, x, mm, valid)  # noqa: E731
-        eager = {"events_ms": cuda_ms(eager_step, runs=5, warmup=1),
-                 "device_ms": device_ms(eager_step, runs=2, warmup=1)[0],
-                 "host_ms": host_ms(eager_step, runs=3, warmup=1)}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base_gb = torch.cuda.memory_allocated() / 2**30
-        t0 = time.perf_counter()
-        train_segmentation_model(state, images, masks, num_epochs=1, batch_size=B,
-                                 seg_size=256, seed=0, log=quiet)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        prog = _epoch_programs(state, images, masks, B, 256, "cross_entropy", K)
-        check(set(prog.graphs) == {K}, f"graphs {sorted(prog.graphs)} after one full-chunk epoch")
-        rows = _stage(_epoch_table([np.arange(t * B, (t + 1) * B) for t in range(K)], B,
-                                   [dropout_seed(1, 0, t) for t in range(K)]),
-                      torch.device("cuda"))
-        chunk = lambda: prog.run(rows, state, images, masks)  # noqa: E731
-        graphed = {"events_ms": cuda_ms(chunk, runs=5, warmup=1) / K,
-                   "device_ms": device_ms(chunk, runs=2, warmup=0)[0] / K,
-                   "host_ms": host_ms(chunk, runs=10, warmup=1) / K,
-                   "capture_s": prog.capture_seconds[K], "first_call_s": first_s,
-                   "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
-                   "reserved_gb": torch.cuda.memory_reserved() / 2**30,
-                   "before_gb": base_gb}
-        # a chunk with no host synchronisation in it: the copy of its rows
-        # and the replay under sync-debug mode "error"
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            chunk()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        graphed["sync_free_chunk"] = True
-        # epochs through the entry point: img/s of the graphed loop
-        t0 = time.perf_counter()
-        train_segmentation_model(state, images, masks, num_epochs=3, batch_size=B,
-                                 seg_size=256, seed=1, log=quiet)
-        torch.cuda.synchronize()
-        graphed["epoch_img_per_s"] = 3 * N / (time.perf_counter() - t0)
-        out[dtype] = {"eager": eager, "graphed": graphed,
-                      "events_speedup": eager["events_ms"] / graphed["events_ms"]}
-        del state, prog, chunk
+        out[dtype] = step_dispatch_times(fresh(dtype), images, masks, K, B)
         torch.cuda.empty_cache()
 
     # ---- the graphed epoch against eager loops, from one state, under
@@ -2509,6 +2638,7 @@ def phase_weakly_resume(weakly):
     check(agree >= 0.995, f"resumed final masks agree {agree} < 0.995 with the uninterrupted run")
     phases = {name: {"seconds": sw.times[name], "calls": sw.counts[name],
                      "img_per_s": sw.rate(name)} for name in sw.times}
+    deterministic = deterministic_resume_pair(cfg)
     emit("weakly_resume", entry="run_weakly_supervised_alternating(resume=True)",
          resumed_from="a copy of the weakly phase's alt_000", cuts="as weakly; alternation 1 "
          "of 2 (alternation 0 restored)", train_images=n_train, wall_s=wall, phases=phases,
@@ -2519,8 +2649,66 @@ def phase_weakly_resume(weakly):
          alt_iou={"resumed": m["alt_iou"], "uninterrupted": weakly["metrics"]["alt_iou"]},
          snapshot_mb=snapshot_mb(resume_dir / "alt_001"),
          checkpoint_s=sw.times["checkpoint"],
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         deterministic_pair=deterministic)
     return launches
+
+
+def deterministic_resume_pair(cfg) -> dict:
+    """Resume held to the bits: under cudnn.deterministic, an uninterrupted
+    run_weakly_supervised_alternating at two alternations and a resume from a
+    copy of its alt_000 must end with the same final masks, the same
+    segmentation state (parameters, BatchNorm statistics, Adam's moments and
+    counters, step) and the same alt_iou, bit for bit. ``cfg`` (weakly's) is
+    cut in pets, classifier epochs and sweeps; the widths stay."""
+    import math
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.config import apply_overrides
+    from weaklysuperviseddl_tpu_torch.pipelines.weakly import run_weakly_supervised_alternating
+
+    cut = {"data.synthetic_size": 32, "classifier.epochs": 1, "alternating.refine_repeats": 1}
+    cfg = apply_overrides(cfg, cut)
+    check(cfg.alternating.num_alternations == 2, "the pair needs two alternations")
+    root = CKPT_ROOT / "deterministic"
+    quiet = lambda *_: None  # noqa: E731
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    try:
+        full = run_weakly_supervised_alternating(cfg, checkpoint_dir=str(root / "full"),
+                                                 log=quiet, device="cuda")
+        shutil.copytree(root / "full" / "alt_000", root / "resumed" / "alt_000")
+        resumed = run_weakly_supervised_alternating(cfg, checkpoint_dir=str(root / "resumed"),
+                                                    resume=True, log=quiet, device="cuda")
+    finally:
+        torch.backends.cudnn.deterministic = old
+    wall = time.perf_counter() - t0
+    a, b = seg_state_snapshot(full.seg_state), seg_state_snapshot(resumed.seg_state)
+    differ = [k for k in a["model"] if k not in b["model"]
+              or not same_bits(a["model"][k], b["model"][k])]
+    moments_equal = len(a["m"]) == len(b["m"]) and all(
+        same_bits(x, y) for x, y in zip(a["m"] + a["v"], b["m"] + b["v"]))
+    _, masks_a, keys_a = full.mask_store.as_arrays()
+    _, masks_b, keys_b = resumed.mask_store.as_arrays()
+    iou_a, iou_b = full.metrics["alt_iou"], resumed.metrics["alt_iou"]
+    out = {"cudnn_deterministic": True, "cut": cut, "train_images": len(full.mask_store),
+           "wall_s": wall,
+           "final_masks_bit_equal": keys_a == keys_b and np.array_equal(masks_a, masks_b),
+           "final_masks_agreement": float((masks_a == masks_b).mean()),
+           "model_state_bit_equal": a["model"].keys() == b["model"].keys() and not differ,
+           "model_tensors_differing": len(differ),
+           "adam_moments_bit_equal": moments_equal,
+           "counters": {"uninterrupted": a["counters"], "resumed": b["counters"]},
+           "alt_iou": {"uninterrupted": iou_a, "resumed": iou_b}}
+    out["alt_iou_bit_equal"] = iou_a == iou_b or (math.isnan(iou_a) and math.isnan(iou_b))
+    shutil.rmtree(root)
+    for key in ("final_masks_bit_equal", "model_state_bit_equal", "adam_moments_bit_equal",
+                "alt_iou_bit_equal"):
+        check(out[key], f"deterministic resume: {key} is false: {out}")
+    check(a["counters"] == b["counters"], f"deterministic resume: counters {out['counters']}")
+    return out
 
 
 def phase_serve_checkpoint(weakly):
@@ -3201,11 +3389,99 @@ def tf32_on():
     return ctx()
 
 
-def phase_bf16():
-    """The bfloat16 compute dtype (classifier.dtype, seg.dtype, BASNet's
-    dtype): K5 on bfloat16 inputs, the cut full-width cycle in bfloat16,
-    the segmentation step and BASNet in float32, TF32 and bfloat16."""
-    import copy
+def k5_half(dtype: str) -> dict:
+    """K5 on 16-bit act and grad: the full-width classifier in ``dtype``
+    (seed 0), its layer3 and layer4 on 32 synthetic pets at 224², each
+    bit-equal to K5 on the float32 upcasts, within 1e-6 of plain, two launches
+    identical, timed beside its bound (bytes of 16-bit inputs) and beside the
+    float32 launch; then the path, layercam(fusion="pallas") on that
+    classifier, with the counts by input type reset just before and read just
+    after (2 launches of ``dtype``)."""
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.cam.layercam import layercam
+    from weaklysuperviseddl_tpu_torch.data.preprocess import preprocess_batch
+    from weaklysuperviseddl_tpu_torch.data.synthetic import synthetic_pet_arrays
+    from weaklysuperviseddl_tpu_torch.models.classifier import CamClassifier
+    from weaklysuperviseddl_tpu_torch.models.resnet import compute_dtype, init_weights
+    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import (
+        cam_fusion_cuda,
+        cam_fusion_plain,
+        cluster_size,
+        max_active_clusters,
+        sm_count,
+    )
+
+    dt = compute_dtype(dtype)
+    model = CamClassifier(37, 50, 1.0, dtype=dtype)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.cuda().eval()
+    images, labels, _ = synthetic_pet_arrays(32, image_size=224, seed=8)
+    x, _ = preprocess_batch(torch.from_numpy((images * 255).astype(np.uint8)).cuda(), None,
+                            size=224)
+    cls = torch.from_numpy(labels).cuda()
+    xi = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+    logits, feats = model.features(xi)
+    acts = [feats["layer3"], feats["layer4"]]
+    grads = torch.autograd.grad(logits.gather(1, cls.long().view(-1, 1)).sum(), acts)
+    check(all(t.dtype == dt for t in (*acts, *grads)),
+          f"the {dtype} classifier's activations or gradients are not {dtype}")
+    check(all(bool(torch.isfinite(t).all()) for t in (*acts, *grads)),
+          f"the {dtype} classifier's activations or gradients are not finite")
+    k5, max_err = {}, 0.0
+    for name, a, g in (("layer3", acts[0], grads[0]), ("layer4", acts[1], grads[1])):
+        a, g = a.detach().contiguous(), g.contiguous()
+        af, gf = a.float(), g.float()
+        got = cam_fusion_cuda(a, g)
+        again = cam_fusion_cuda(a, g)
+        upcast = cam_fusion_cuda(af, gf)
+        want = cam_fusion_plain(a, g)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, upcast), f"K5 on {dtype} {name} differs from K5 on its upcasts")
+        check(torch.equal(again, got), f"K5 on {dtype} differs between launches at {name}")
+        check(err <= 1e-6, f"K5 on {dtype} {name} differs from plain by {err}")
+        max_err = max(max_err, err)
+        B, C, h, w = a.shape
+        S = cluster_size(B, C, sm_count(a.device))
+        # bytes: 16-bit act and grad read once, the float32 CAM written once
+        bound_ms, bound_by = roofline(B * h * w * (2 * 2 * C + 4), 3 * B * C * h * w)
+        k5[name] = {"shape": list(a.shape), "cluster_size": S,
+                    "max_active_clusters": max_active_clusters(C, h * w, S, (h * w) % 4 == 0,
+                                                               dt),
+                    "max_abs_err": err, "bit_equal_to_float32_upcast": True,
+                    **kernel_ms(lambda: cam_fusion_cuda(a, g), runs=50, warmup=5),
+                    "host_ms": host_ms(lambda: cam_fusion_cuda(a, g), runs=50),
+                    "plain_ms": cuda_ms(lambda: cam_fusion_plain(a, g), runs=50, warmup=5),
+                    "float32_kernel_ms": cuda_ms(lambda: cam_fusion_cuda(af, gf), runs=50,
+                                                 warmup=5),
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+    del acts, grads, feats, logits
+    # the main path: counts from 0, layercam(fusion="pallas") on the 16-bit
+    # classifier, read after
+    cam_fusion_cuda.launches = 0
+    cam_fusion_cuda.launches_by_dtype = dict.fromkeys(cam_fusion_cuda.launches_by_dtype, 0)
+    cam_k, _ = layercam(model, x, cls, output_size=224, fusion="pallas")
+    torch.cuda.synchronize()
+    launches = dict(cam_fusion_cuda.launches_by_dtype)
+    want_launches = {**dict.fromkeys(launches, 0), dtype: 2}
+    check(launches == want_launches, f"layercam(fusion='pallas') in {dtype} launched {launches}")
+    cam_p, _ = layercam(model, x, cls, output_size=224, fusion="xla")
+    layercam_err = float((cam_k - cam_p).abs().max())
+    check(layercam_err <= 1e-5, f"{dtype} layercam pallas vs xla: {layercam_err}")
+    check(cam_k.dtype == torch.float32 and tuple(cam_k.shape) == (32, 224, 224)
+          and bool(torch.isfinite(cam_k).all()), f"{dtype} CAMs are not finite float32")
+    return {"k5": k5, "max_abs_err": max_err, "launches": launches,
+            "layercam_pallas_vs_xla": layercam_err}
+
+
+def cut_cycle(dtype: str, fp32_masks) -> dict:
+    """The weakly phase's cut full-width cycle with classifier.dtype =
+    seg.dtype = ``dtype`` (K1 and K2 counted from 0); its final store masks
+    against the float32 run's ``fp32_masks`` (agreement reported: the two
+    runs train apart by rounding); its trained models against float32 builds
+    of the same weights: pseudo-masks of 32 pets and DeepLabV3's argmax on 8
+    store images (each >= 0.99)."""
     import math
 
     import torch
@@ -3217,98 +3493,22 @@ def phase_bf16():
         ExperimentConfig,
         SegConfig,
     )
-    from weaklysuperviseddl_tpu_torch.data.dataset import download_data
-    from weaklysuperviseddl_tpu_torch.data.preprocess import normalize_images, preprocess_batch
-    from weaklysuperviseddl_tpu_torch.data.synthetic import synthetic_pet_arrays
+    from weaklysuperviseddl_tpu_torch.data.preprocess import preprocess_batch
     from weaklysuperviseddl_tpu_torch.masks.pseudo import cam_to_mask
     from weaklysuperviseddl_tpu_torch.models.classifier import CamClassifier
     from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
-    from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
-    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import (
-        cam_fusion_cuda,
-        cam_fusion_plain,
-        cluster_size,
-        max_active_clusters,
-        sm_count,
-    )
+    from weaklysuperviseddl_tpu_torch.models.resnet import compute_dtype
     from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
     from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
-    from weaklysuperviseddl_tpu_torch.pipelines import basnet_demo
-    from weaklysuperviseddl_tpu_torch.pipelines.basnet_infer import (
-        IMG_SIZE,
-        build_basnet,
-        saliency_step,
-    )
     from weaklysuperviseddl_tpu_torch.pipelines.weakly import run_weakly_supervised_alternating
-    from weaklysuperviseddl_tpu_torch.train.basnet import Adam, make_basnet_train_step
     from weaklysuperviseddl_tpu_torch.train.segmentation import _normalize_images
     from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch
 
-    t_phase = time.perf_counter()
-    # ---- K5 on bfloat16 act and grad: the full-width classifier in bfloat16
-    # (seed 0), its layer3 and layer4 on 32 synthetic pets at 224² ----
-    model = CamClassifier(37, 50, 1.0, dtype="bfloat16")
-    init_weights(model, torch.Generator().manual_seed(0))
-    model = model.cuda().eval()
-    images, labels, _ = synthetic_pet_arrays(32, image_size=224, seed=8)
-    x, _ = preprocess_batch(torch.from_numpy((images * 255).astype(np.uint8)).cuda(), None,
-                            size=224)
-    cls = torch.from_numpy(labels).cuda()
-    xi = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
-    logits, feats = model.features(xi)
-    acts = [feats["layer3"], feats["layer4"]]
-    grads = torch.autograd.grad(logits.gather(1, cls.long().view(-1, 1)).sum(), acts)
-    check(all(t.dtype == torch.bfloat16 for t in (*acts, *grads)),
-          "the bfloat16 classifier's activations or gradients are not bfloat16")
-    k5, max_err = {}, 0.0
-    for name, a, g in (("layer3", acts[0], grads[0]), ("layer4", acts[1], grads[1])):
-        a, g = a.detach().contiguous(), g.contiguous()
-        af, gf = a.float(), g.float()
-        got = cam_fusion_cuda(a, g)
-        again = cam_fusion_cuda(a, g)
-        upcast = cam_fusion_cuda(af, gf)
-        want = cam_fusion_plain(a, g)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        check(torch.equal(got, upcast), f"K5 on bfloat16 {name} differs from K5 on its upcasts")
-        check(torch.equal(again, got), f"K5 on bfloat16 differs between launches at {name}")
-        check(err <= 1e-6, f"K5 on bfloat16 {name} differs from plain by {err}")
-        max_err = max(max_err, err)
-        B, C, h, w = a.shape
-        S = cluster_size(B, C, sm_count(a.device))
-        # bytes: bfloat16 act and grad read once, the float32 CAM written once
-        bound_ms, bound_by = roofline(B * h * w * (2 * 2 * C + 4), 3 * B * C * h * w)
-        k5[name] = {"shape": list(a.shape), "cluster_size": S,
-                    "max_active_clusters": max_active_clusters(C, h * w, S, (h * w) % 4 == 0,
-                                                               torch.bfloat16),
-                    "max_abs_err": err, "bit_equal_to_float32_upcast": True,
-                    **kernel_ms(lambda: cam_fusion_cuda(a, g), runs=50, warmup=5),
-                    "host_ms": host_ms(lambda: cam_fusion_cuda(a, g), runs=50),
-                    "plain_ms": cuda_ms(lambda: cam_fusion_plain(a, g), runs=50, warmup=5),
-                    "float32_kernel_ms": cuda_ms(lambda: cam_fusion_cuda(af, gf), runs=50,
-                                                 warmup=5),
-                    "bound_ms": bound_ms, "bound_by": bound_by}
-    del acts, grads, feats, logits
-    # the main path: counts from 0, layercam(fusion="pallas") on the bfloat16
-    # classifier, read after
-    cam_fusion_cuda.launches = 0
-    cam_fusion_cuda.launches_by_dtype = dict.fromkeys(cam_fusion_cuda.launches_by_dtype, 0)
-    cam_k, _ = layercam(model, x, cls, output_size=224, fusion="pallas")
-    torch.cuda.synchronize()
-    k5_launches = dict(cam_fusion_cuda.launches_by_dtype)
-    check(k5_launches == {"float32": 0, "bfloat16": 2},
-          f"layercam(fusion='pallas') in bfloat16 launched {k5_launches}")
-    cam_p, _ = layercam(model, x, cls, output_size=224, fusion="xla")
-    layercam_err = float((cam_k - cam_p).abs().max())
-    check(layercam_err <= 1e-5, f"bfloat16 layercam pallas vs xla: {layercam_err}")
-    check(cam_k.dtype == torch.float32 and tuple(cam_k.shape) == (32, 224, 224)
-          and bool(torch.isfinite(cam_k).all()), "bfloat16 CAMs are not finite float32")
-    del model
-
-    # ---- the cut full-width cycle in bfloat16, as the weakly phase runs it ----
+    cuts = {"classifier.epochs": 2, "seg.epochs": 1, "alternating.num_alternations": 2,
+            "alternating.epochs_per_round": 1, "alternating.refine_repeats": 2}
     cfg = ExperimentConfig(
-        classifier=ClassifierConfig(epochs=2, dtype="bfloat16"),
-        seg=SegConfig(epochs=1, dtype="bfloat16"),
+        classifier=ClassifierConfig(epochs=2, dtype=dtype),
+        seg=SegConfig(epochs=1, dtype=dtype),
         alternating=AlternatingConfig(num_alternations=2, epochs_per_round=1, refine_repeats=2))
     sw = Stopwatch("cuda")
     reset_cc_counts()
@@ -3322,24 +3522,24 @@ def phase_bf16():
     n_train = len(result.mask_store)
     want_refine = math.ceil(n_train / cfg.seg.batch_size) * 2 * 2
     check(launches["refine"] == want_refine and refine_cuda.plan_launches["v1sym"] == want_refine,
-          f"bfloat16 cycle launched refine {launches['refine']} times "
+          f"{dtype} cycle launched refine {launches['refine']} times "
           f"({refine_cuda.plan_launches}), expected {want_refine} v1sym")
-    check(launches["cc_label"] > 0, "the bfloat16 cycle never launched the cc kernel")
-    check_cc_image_plan("bf16")
+    check(launches["cc_label"] > 0, f"the {dtype} cycle never launched the cc kernel")
+    check_cc_image_plan(dtype)
     m = result.metrics
     scalars = {k: m[k] for k in ("iou", "acc", "final_loss", "alt_iou", "alt_acc")}
-    check(all(math.isfinite(v) for v in scalars.values()), f"non-finite bf16 metrics {scalars}")
+    check(all(math.isfinite(v) for v in scalars.values()), f"non-finite {dtype} metrics {scalars}")
     store_images, store_masks, _ = result.mask_store.as_arrays()
     check(store_masks.shape == (n_train, 256, 256) and set(np.unique(store_masks)) <= {0, 1},
-          "bfloat16 store masks are not binary [N,256,256]")
+          f"{dtype} store masks are not binary [N,256,256]")
     classifier, seg = result.classifier, result.seg_state.model
-    check(classifier.compute_dtype == seg.compute_dtype == torch.bfloat16
+    check(classifier.compute_dtype == seg.compute_dtype == compute_dtype(dtype)
           and all(p.dtype == torch.float32 for p in seg.parameters()),
-          "the bfloat16 cycle's models are not bfloat16 over float32 parameters")
+          f"the {dtype} cycle's models are not {dtype} over float32 parameters")
+    opt = result.seg_state.optimizer
 
-    # bfloat16 against float32 from the same weights (the cycle's trained
-    # models, loaded into float32 builds): pseudo-masks of 32 train images
-    # and DeepLabV3's argmax on 8 store images
+    # the same weights in float32 builds: pseudo-masks of 32 train images and
+    # DeepLabV3's argmax on 8 store images
     fp32_cls = CamClassifier(37, 50, 1.0).cuda().eval()
     fp32_cls.load_state_dict(classifier.state_dict())
     fp32_seg = DeepLabV3(2, 50, 1.0).cuda().eval()
@@ -3348,17 +3548,72 @@ def phase_bf16():
     xc, _ = preprocess_batch(torch.from_numpy(train_pets).cuda(), None, size=224)
     cls32 = torch.arange(32, device="cuda") % 37
     masks_by = {}
-    for key, mdl in (("bf16", classifier), ("fp32", fp32_cls)):
+    for key, mdl in (("half", classifier), ("fp32", fp32_cls)):
         cam, _ = layercam(mdl, xc, cls32, output_size=224)
         masks_by[key] = cam_to_mask(cam, cfg.mask.cam_thresh, True)
-    mask_agree = float((masks_by["bf16"] == masks_by["fp32"]).float().mean())
+    mask_agree = float((masks_by["half"] == masks_by["fp32"]).float().mean())
     xs, _ = preprocess_batch(torch.from_numpy(store_images[:8]).cuda(), None, size=256)
     xs = _normalize_images(xs).permute(0, 3, 1, 2)
     seg.eval()
     with torch.no_grad():
         argmax_agree = float((seg(xs).argmax(1) == fp32_seg(xs).argmax(1)).float().mean())
-    check(mask_agree >= 0.99, f"bf16/fp32 pseudo-mask agreement {mask_agree} < 0.99")
-    check(argmax_agree >= 0.99, f"bf16/fp32 seg argmax agreement {argmax_agree} < 0.99")
+    check(mask_agree >= 0.99, f"{dtype}/fp32 pseudo-mask agreement {mask_agree} < 0.99")
+    check(argmax_agree >= 0.99, f"{dtype}/fp32 seg argmax agreement {argmax_agree} < 0.99")
+    check(fp32_masks.shape == store_masks.shape, "the float32 run's store has another shape")
+    phases = {name: {"seconds": sw.times[name], "img_per_s": sw.rate(name)} for name in sw.times}
+    return {"line": {"cuts": cuts, "train_images": n_train, "wall_s": wall, "phases": phases,
+                     "metrics": m, "launches_main_path": launches,
+                     "skipped_steps": int(opt.total_notfinite),
+                     "final_masks_agreement_with_float32_run": float(
+                         (store_masks == fp32_masks).mean()),
+                     "same_weights_as_float32": {"pseudo_mask_agreement": mask_agree,
+                                                 "seg_argmax_agreement": argmax_agree}},
+            "launches": launches, "seg": seg, "store_images": store_images,
+            "store_masks": store_masks}
+
+
+def phase_bf16(fp32_masks):
+    """The 16-bit compute dtypes (classifier.dtype, seg.dtype, BASNet's
+    dtype): K5 on bfloat16 and on float16 inputs, the cut full-width cycle in
+    each against the float32 run, the segmentation step eager and graphed in
+    float16, and the segmentation step and BASNet in float32, TF32 and
+    bfloat16."""
+    import copy
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.data.dataset import download_data
+    from weaklysuperviseddl_tpu_torch.data.preprocess import normalize_images, preprocess_batch
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
+    from weaklysuperviseddl_tpu_torch.pipelines import basnet_demo
+    from weaklysuperviseddl_tpu_torch.pipelines.basnet_infer import (
+        IMG_SIZE,
+        build_basnet,
+        saliency_step,
+    )
+    from weaklysuperviseddl_tpu_torch.train.basnet import Adam, make_basnet_train_step
+    from weaklysuperviseddl_tpu_torch.train.guard import GuardedAdam
+    from weaklysuperviseddl_tpu_torch.train.segmentation import SegTrainState
+
+    t_phase = time.perf_counter()
+    half = {dtype: k5_half(dtype) for dtype in ("bfloat16", "float16")}
+    cycles = {dtype: cut_cycle(dtype, fp32_masks) for dtype in ("bfloat16", "float16")}
+    cycles_lines = {dtype: {"line": c["line"], "launches": c["launches"]}
+                    for dtype, c in cycles.items()}
+    bf16 = cycles["bfloat16"]
+    seg, store_images, store_masks = bf16["seg"], bf16["store_images"], bf16["store_masks"]
+
+    # ---- the float16 leg: the training step at batch 4, eager and graphed
+    # (chunks of 8), from the float16 cycle's weights ----
+    fp16 = cycles["float16"]
+    model16 = DeepLabV3(2, 50, 1.0, dtype="float16").cuda()
+    model16.load_state_dict(fp16["seg"].state_dict())
+    step_fp16 = step_dispatch_times(
+        SegTrainState(model16, GuardedAdam(model16.parameters(), lr=1e-4)),
+        torch.from_numpy(fp16["store_images"][:32]).cuda(),
+        torch.from_numpy(fp16["store_masks"][:32]).cuda(), 8, 4)
+    del model16, fp16, cycles["float16"]
+    torch.cuda.empty_cache()
 
     # ---- the segmentation step at batch 4: float32, TF32 and bfloat16, one
     # set of weights (the cycle's) ----
@@ -3375,7 +3630,7 @@ def phase_bf16():
         else:
             step[key] = seg_step_ms(mdl, store_images[:4], store_masks[:4], dtype)
         del mdl
-    del result, classifier, seg, fp32_cls, fp32_seg
+    del cycles, bf16, seg
 
     # ---- BASNet: a forward at batch 16 and a train step at batch 8 in
     # float32, TF32 and bfloat16 (seed 0 weights), and the bfloat16
@@ -3417,21 +3672,18 @@ def phase_bf16():
                             "forward_peak_gb": fwd_gb, "train_step_b8_ms": train,
                             "train_img_per_s": 8e3 / train, "train_peak_gb": train_gb}
     del bas
-    phases = {name: {"seconds": sw.times[name], "img_per_s": sw.rate(name)} for name in sw.times}
     emit("bf16", entry="run_weakly_supervised_alternating (classifier.dtype = seg.dtype = "
-         "bfloat16); cam/layercam fusion='pallas'; pipelines.basnet_infer.build_basnet(dtype=)",
-         k5_bf16=k5, k5_launches_main_path=k5_launches, layercam_pallas_vs_xla=layercam_err,
-         cycle={"cuts": {"classifier.epochs": 2, "seg.epochs": 1,
-                         "alternating.num_alternations": 2, "alternating.epochs_per_round": 1,
-                         "alternating.refine_repeats": 2},
-                "train_images": n_train, "wall_s": wall, "phases": phases, "metrics": m,
-                "launches_main_path": launches,
-                "bf16_vs_fp32_same_weights": {"pseudo_mask_agreement": mask_agree,
-                                              "seg_argmax_agreement": argmax_agree}},
-         seg_step_batch4=step, basnet=basnet_rows, basnet_saliency_bf16_fp32_agreement=sal_agree,
-         wall_s=time.perf_counter() - t_phase)
-    return {"launches": k5_launches["bfloat16"], "max_abs_err": max_err, **k5["layer4"],
-            "cycle_launches": launches}
+         "bfloat16, then float16); cam/layercam fusion='pallas'; "
+         "pipelines.basnet_infer.build_basnet(dtype=)",
+         k5={dtype: h["k5"] for dtype, h in half.items()},
+         k5_launches_main_path={dtype: h["launches"] for dtype, h in half.items()},
+         layercam_pallas_vs_xla={dtype: h["layercam_pallas_vs_xla"] for dtype, h in half.items()},
+         cycle={dtype: c["line"] for dtype, c in cycles_lines.items()},
+         seg_step_batch4=step, float16_step_batch4_k8=step_fp16, basnet=basnet_rows,
+         basnet_saliency_bf16_fp32_agreement=sal_agree, wall_s=time.perf_counter() - t_phase)
+    return {dtype: {"launches": h["launches"][dtype], "max_abs_err": h["max_abs_err"],
+                    **h["k5"]["layer4"], "cycle_launches": cycles_lines[dtype]["launches"]}
+            for dtype, h in half.items()}
 
 
 def crf_batch_inputs(resident, image_size: int, cam_thresh: float):
@@ -4008,6 +4260,7 @@ def run_phases(seconds: dict, t_start: float) -> int:
     timed("build", phase_build)
     max_err = timed("cc", phase_cc)
     launches, served_masks = timed("serve", phase_serve)
+    timed("goldens", phase_goldens, served_masks)
     int8_launches, int8_sites, int8_breakdown = timed("serve_int8", phase_serve_int8)
     refine_timing, path_batch, batch8 = timed("refine", phase_refine)
     window = timed("window", phase_window, path_batch, batch8)
@@ -4019,12 +4272,14 @@ def run_phases(seconds: dict, t_start: float) -> int:
     boundary_launches = timed("weakly_boundary", phase_weakly_boundary)
     resume_launches = timed("weakly_resume", phase_weakly_resume, weakly_run)
     serve_ckpt_launches = timed("serve_checkpoint", phase_serve_checkpoint, weakly_run)
+    fp32_masks = weakly_run["masks"]
     del weakly_run
     shutil.rmtree(CKPT_ROOT)
     timed("supervised", phase_supervised)
     ablation_launches = timed("ablations", phase_ablations)
     timed("basnet", phase_basnet)
-    fusion_bf16 = timed("bf16", phase_bf16)
+    half = timed("bf16", phase_bf16, fp32_masks)
+    fusion_bf16, fusion_fp16 = half["bfloat16"], half["float16"]
     backends_launches = timed("crf_backends", phase_crf_backends)
     pseudo_launches = timed("pseudo_stage", phase_pseudo_stage)
     compat_launches = timed("compat", phase_compat)
@@ -4060,7 +4315,8 @@ def run_phases(seconds: dict, t_start: float) -> int:
         "replaces": "weaklysuperviseddl_tpu/ops/pallas_cc.py:29",
         **by_path("cc_label", serve=launches, serve_int8=int8_launches["cc_label"],
                   weakly=weakly_launches["cc_label"],
-                  bf16=fusion_bf16["cycle_launches"]["cc_label"]),
+                  bf16=fusion_bf16["cycle_launches"]["cc_label"],
+                  fp16=fusion_fp16["cycle_launches"]["cc_label"]),
         "max_abs_err": max_err,
         **kernel_ms(lambda: label_components_cuda(served_masks), runs=25, warmup=3),
         "host_ms": host_ms(lambda: label_components_cuda(served_masks), runs=25),
@@ -4076,7 +4332,8 @@ def run_phases(seconds: dict, t_start: float) -> int:
         "source": "weaklysuperviseddl_tpu_torch/csrc/refine.cu",
         "replaces": "weaklysuperviseddl_tpu/ops/pallas_refine.py:45",
         **by_path("refine", weakly=weakly_launches["refine"],
-                  bf16=fusion_bf16["cycle_launches"]["refine"]),
+                  bf16=fusion_bf16["cycle_launches"]["refine"],
+                  fp16=fusion_fp16["cycle_launches"]["refine"]),
         # C=2 on every path; each path phase checks its launches were all v1sym
         "plan_auto_ran": "v1sym",
         "max_abs_err": refine_timing["max_abs_err"],  # of the loss; masks equal or >= 0.9999
@@ -4169,6 +4426,21 @@ def run_phases(seconds: dict, t_start: float) -> int:
         "shape": fusion_bf16["shape"],  # layer4; layer3 in the bf16 line
         "cluster_size": fusion_bf16["cluster_size"],
         "float32_kernel_ms": fusion_bf16["float32_kernel_ms"],  # the same call on the upcasts
+    }, {
+        "name": "cam_fusion_fp16",
+        "route": "cuda",
+        "source": "weaklysuperviseddl_tpu_torch/csrc/cam_fusion.cu",
+        "replaces": "weaklysuperviseddl_tpu/ops/pallas_cam.py:28",
+        # K5 on float16 act and grad, launched by layercam(fusion="pallas") on
+        # the float16 classifier
+        "launches": fusion_fp16["launches"],
+        "launches_by_path": {"fp16": fusion_fp16["launches"]},
+        "max_abs_err": fusion_fp16["max_abs_err"],  # against plain; bit-equal to the upcasts'
+        **timed_fields(fusion_fp16),
+        "library_ms": None,  # no single PyTorch call computes the fusion
+        "shape": fusion_fp16["shape"],  # layer4; layer3 in the bf16 line
+        "cluster_size": fusion_fp16["cluster_size"],
+        "float32_kernel_ms": fusion_fp16["float32_kernel_ms"],
     }]}
     gemm = int8_sites["int8_gemm"]
     for name in ("quantize_gather", "dequant_epilogue"):

@@ -22,6 +22,7 @@ import pytest
 import torch
 from test_basnet_train import _naive_ssim
 from test_torch_refine import single_torch_thread  # noqa: F401  (fixture)
+from torch_bridge import host_state, jax_tree
 
 import weaklysuperviseddl_tpu.train.basnet as jax_train
 from weaklysuperviseddl_tpu.models.basnet import BASNet as JaxBASNet
@@ -58,8 +59,8 @@ def _perturb(model: torch.nn.Module, seed: int) -> torch.nn.Module:
 
 
 def _jax_variables(state_dict):
-    params, stats = torch_to_flax(state_dict)
-    return jax.tree.map(jnp.asarray, {"params": params, "batch_stats": stats})
+    params, stats = torch_to_flax(host_state(state_dict))
+    return jax_tree({"params": params, "batch_stats": stats})
 
 
 def _nhwc(x: torch.Tensor) -> np.ndarray:
@@ -149,6 +150,30 @@ def test_basic_block_de_matches_jax(stride):
         mine = getattr(block, module).running_mean if leaf == "mean" else \
             getattr(block, module).running_var
         np.testing.assert_allclose(mine.numpy(), np.asarray(value), atol=1e-6, rtol=0)
+
+
+def test_jax_variables_do_not_follow_torch_in_place_changes():
+    """The test above runs JAX's training-mode forward asynchronously and then
+    the port's, which updates the running statistics in place. A JAX tree
+    built from views of the torch buffers (``torch_to_flax(state_dict)`` then
+    ``jnp.asarray``) may alias them and read the updated statistics: 0.09·(m −
+    r) off, the size of a once-seen failure. ``_jax_variables`` hands JAX
+    copies, so an in-place change leaves its tree as it was. Whether the old
+    recipe aliases depends on the buffers' alignment, so only the helper's
+    tree is held."""
+    block = _perturb(init_weights(BasicBlockDe(6, 8, 2), torch.Generator().manual_seed(3)), 4)
+    params, stats = torch_to_flax(block.state_dict())
+    views = jax.tree.map(jnp.asarray, {"params": params, "batch_stats": stats})
+    copies = _jax_variables(block.state_dict())
+    want = jax.tree.map(lambda a: np.array(a, copy=True), copies)
+    assert jax.tree.all(jax.tree.map(np.array_equal, want, jax.tree.map(np.asarray, views)))
+    with torch.no_grad():
+        for m in block.modules():
+            if isinstance(m, BatchNorm2d):
+                m.running_mean.mul_(2.0).add_(1.0)
+                m.running_var.mul_(3.0)
+    for (path, got), w in zip(jax.tree_util.tree_leaves_with_path(copies), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(np.asarray(got), w, err_msg=jax.tree_util.keystr(path))
 
 
 # ---- the hybrid loss ------------------------------------------------------------------

@@ -83,9 +83,10 @@ def test_basnet_pth_loads_in_both_packages(bridged, tmp_path):
     convs = [n for n, m in port.named_modules() if isinstance(m, torch.nn.Conv2d)]
     assert all(torch.equal(drawn.get_submodule(n).weight, port.get_submodule(n).weight)
                for n in convs)
-    # bfloat16 is a compute dtype (tests/test_torch_dtype.py); float16 is not
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        basnet_infer.build_basnet(device="cpu", dtype="float16")
+    # bfloat16 and float16 are compute dtypes (tests/test_torch_dtype.py,
+    # test_torch_dtype_fp16.py); float64 is not
+    with pytest.raises(ValueError, match="is not ported"):
+        basnet_infer.build_basnet(device="cpu", dtype="float64")
 
 
 def test_run_inference_matches_jax(bridged, tmp_path, monkeypatch):

@@ -22,6 +22,7 @@ import pytest
 import torch
 from test_torch_basnet import CLIP, LR, LR_END, SIZE, _perturb
 from test_torch_refine import single_torch_thread  # noqa: F401  (fixture)
+from torch_bridge import host_state, jax_tree
 
 import weaklysuperviseddl_tpu.models.basnet as jax_basnet
 import weaklysuperviseddl_tpu.train.basnet as jax_train
@@ -68,7 +69,7 @@ def test_train_basnet_run_matches_jax_in_float64():
         mp.setattr(jax_train, "_gaussian_window", lambda *args: window)
         mp.setattr(jax_train, "_separable_blur", lambda x, win: blur(x.astype(win.dtype), win))
         mp.setattr(jax_basnet, "resize_bilinear", _resize_bilinear_in_place_dtype)
-        params, stats = jax.tree.map(jnp.asarray, torch_to_flax(before))
+        params, stats = jax_tree(torch_to_flax(host_state(before)))
         _, want = jax_train.train_basnet(jax_basnet.BASNet(dtype=jnp.float64),
                                          {"params": params, "batch_stats": stats},
                                          images, targets, **kw)

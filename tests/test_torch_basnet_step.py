@@ -13,6 +13,7 @@ import pytest
 import torch
 from test_torch_basnet import CLIP, LR, LR_END, SIZE, STEPS, bridged  # noqa: F401  (fixtures)
 from test_torch_refine import single_torch_thread  # noqa: F401  (fixture)
+from torch_bridge import host_state, jax_tree
 
 import weaklysuperviseddl_tpu.train.basnet as jax_train
 from weaklysuperviseddl_tpu.models.basnet import BASNet as JaxBASNet
@@ -56,8 +57,7 @@ def train_step(bridged):
     with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
         window = jnp.asarray(np.asarray(jax_train._gaussian_window()), jnp.float64)
         mp.setattr(jax_train, "_gaussian_window", lambda *args: window)
-        params, stats = torch_to_flax(before)
-        params, stats = jax.tree.map(jnp.asarray, (params, stats))
+        params, stats = jax_tree(torch_to_flax(host_state(before)))
         jmodel = JaxBASNet(dtype=jnp.float64)
 
         def loss_fn(params, stats, images, targets):

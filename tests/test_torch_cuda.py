@@ -451,12 +451,11 @@ def test_cam_fusion_kernel_equals_plain(cuda, shape):
     assert torch.equal(again, got)
 
 
-@pytest.mark.parametrize("shape", [(3, 160, 14, 14), (2, 130, 7, 9), (1, 512, 14, 14),
-                                   (32, 2048, 14, 14), (32, 1024, 14, 14)])
-def test_cam_fusion_bf16_equals_kernel_on_the_upcasts(cuda, shape):
-    """bfloat16 act and grad: bit-equal to the kernel on their float32
-    upcasts (the same sums in the same order; 7x9 takes the scalar loads),
-    within 1e-5 of plain, two launches identical, counted as bfloat16."""
+HALF_SHAPES = [(3, 160, 14, 14), (2, 130, 7, 9), (1, 512, 14, 14), (32, 2048, 14, 14),
+               (32, 1024, 14, 14)]
+
+
+def _half_fusion_equals_kernel_on_the_upcasts(device, shape, dtype):
     from weaklysuperviseddl_tpu_torch.ops.cam_fusion import (
         cam_fusion,
         cam_fusion_cuda,
@@ -464,11 +463,12 @@ def test_cam_fusion_bf16_equals_kernel_on_the_upcasts(cuda, shape):
     )
 
     rng = np.random.default_rng(5)
-    act, grad = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
-                 .to(torch.bfloat16) for _ in range(2))
+    act, grad = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+                 .to(dtype) for _ in range(2))
+    name = str(dtype).removeprefix("torch.")
     before = dict(cam_fusion_cuda.launches_by_dtype)
     got = cam_fusion_cuda(act, grad)
-    assert cam_fusion_cuda.launches_by_dtype["bfloat16"] == before["bfloat16"] + 1
+    assert cam_fusion_cuda.launches_by_dtype[name] == before[name] + 1
     upcast = cam_fusion_cuda(act.float(), grad.float())
     again = cam_fusion(act, grad)
     want = cam_fusion_plain(act, grad)
@@ -478,6 +478,21 @@ def test_cam_fusion_bf16_equals_kernel_on_the_upcasts(cuda, shape):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     with pytest.raises(TypeError, match="one dtype"):
         cam_fusion_cuda(act, grad.float())
+
+
+@pytest.mark.parametrize("shape", HALF_SHAPES)
+def test_cam_fusion_bf16_equals_kernel_on_the_upcasts(cuda, shape):
+    """bfloat16 act and grad: bit-equal to the kernel on their float32
+    upcasts (the same sums in the same order; 7x9 takes the scalar loads),
+    within 1e-5 of plain, two launches identical, counted as bfloat16."""
+    _half_fusion_equals_kernel_on_the_upcasts(cuda, shape, torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", HALF_SHAPES)
+def test_cam_fusion_fp16_equals_kernel_on_the_upcasts(cuda, shape):
+    """float16 act and grad, as bfloat16's: bit-equal to the kernel on their
+    float32 upcasts, within 1e-5 of plain, counted as float16."""
+    _half_fusion_equals_kernel_on_the_upcasts(cuda, shape, torch.float16)
 
 
 def test_atrous_tap_plan_on_the_card(cuda):

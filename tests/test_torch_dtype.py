@@ -83,8 +83,8 @@ def disagree(a, b) -> float:
 
 def assert_within_jax_rounding(what: str, c_a: float, a_b: float):
     """dist(C, A) <= 2 * dist(A, B) + 1e-3, the distances in the message."""
-    msg = (f"{what}: dist(port bf16, JAX bf16) = {c_a:.6g}, "
-           f"dist(JAX bf16, JAX fp32) = {a_b:.6g}, bound {2 * a_b + 1e-3:.6g}")
+    msg = (f"{what}: dist(port 16-bit, JAX 16-bit) = {c_a:.6g}, "
+           f"dist(JAX 16-bit, JAX fp32) = {a_b:.6g}, bound {2 * a_b + 1e-3:.6g}")
     print(msg)
     assert c_a <= 2 * a_b + 1e-3, msg
 
@@ -316,13 +316,17 @@ def test_build_basnet_bf16_returns_float32_maps():
 
 
 def test_float16_and_other_dtypes_raise():
-    for bad in ("float16", "float64", "int8"):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
+    """float16 is a compute dtype since it was ported
+    (``test_torch_dtype_fp16.py``); float64 and the integer types raise."""
+    for bad in ("float64", "int8"):
+        with pytest.raises(ValueError, match="is not ported"):
             SegConfig(dtype=bad)
-        with pytest.raises(ValueError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match="is not ported"):
             compute_dtype(bad)
-        with pytest.raises(ValueError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match="is not ported"):
             build_basnet(weights_path=None, device="cpu", dtype=bad)
+    assert SegConfig(dtype="float16").dtype == "float16"
+    assert compute_dtype("float16") is compute_dtype(torch.float16) is torch.float16
     assert compute_dtype(torch.bfloat16) is torch.bfloat16
     assert compute_dtype("float32") is torch.float32
 
@@ -334,8 +338,10 @@ def test_cli_takes_the_dtype_overrides():
     args = argparse.Namespace(smoke=True, command="weakly")
     cfg = _config(args, parser, ["--classifier.dtype", "bfloat16", "--seg.dtype", "bfloat16"])
     assert (cfg.classifier.dtype, cfg.seg.dtype) == ("bfloat16", "bfloat16")
-    with pytest.raises(ValueError, match="float16"):
-        _config(args, parser, ["--seg.dtype", "float16"])
+    cfg = _config(args, parser, ["--classifier.dtype", "float16", "--seg.dtype", "float16"])
+    assert (cfg.classifier.dtype, cfg.seg.dtype) == ("float16", "float16")
+    with pytest.raises(ValueError, match="float64"):
+        _config(args, parser, ["--seg.dtype", "float64"])
 
 
 def test_supervised_and_ablations_ignore_seg_dtype(monkeypatch):

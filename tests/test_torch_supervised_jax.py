@@ -13,6 +13,7 @@ from test_torch_models import jax_deeplab_numpy
 from test_torch_refine import single_torch_thread  # noqa: F401  (fixture)
 from test_torch_segmentation import _batch, no_dropout  # noqa: F401  (fixture)
 from test_torch_supervised import _Set, _eval_case
+from torch_bridge import host_state
 
 import weaklysuperviseddl_tpu.pipelines.supervised as jax_supervised
 from weaklysuperviseddl_tpu.models.deeplabv3 import DeepLabV3 as JaxDeepLabV3
@@ -157,7 +158,7 @@ def test_supervised_training_matches_jax(monkeypatch, no_dropout):
     assert any("Final Test Results:" in s for s in logs)
 
     # the JAX evaluation of the port's final weights, on the same test set
-    back = deeplab_variables(state.model.state_dict())
+    back = deeplab_variables(host_state(state.model.state_dict()))
     jax_model = JaxDeepLabV3(num_classes=2, backbone_depth=18, width_multiplier=0.25)
     test_images, test_trimaps = (a.numpy() for a in supervised.load_test_arrays(cfg, "cpu"))
     acc, iou = jax_eval_multiclass_dataset(

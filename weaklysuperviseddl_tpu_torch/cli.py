@@ -12,6 +12,8 @@ weaklysuperviseddl_tpu/cli.py):
     python -m weaklysuperviseddl_tpu_torch basnet [--weights ./Weights/basnet.pth]
         [--num-images 10] [--dtype bfloat16] [--device cpu]
     python -m weaklysuperviseddl_tpu_torch dryrun [--devices N] [--device cpu]
+    python -m weaklysuperviseddl_tpu_torch parity --weights-dir ./Weights [--device cpu]
+        [--pet-root DIR] [--basnet-golden-dir DIR] [--num-images 8] [--out PARITY.md]
 
 ``weakly``, ``supervised``, ``ablations``, ``serve`` and ``basnet`` run on the
 card unless ``--device cpu`` is given, with TF32 off for cuDNN convolutions
@@ -20,7 +22,10 @@ in the config's compute dtypes, float32 by default: ``--classifier.dtype
 bfloat16 --seg.dtype bfloat16`` runs the classifier and DeepLabV3 in
 bfloat16 (float32 parameters, statistics and optimizer state; products
 accumulate in float32; DeepLabV3's logits, the losses, the refinement and the
-CRF stay float32), and ``basnet --dtype bfloat16`` runs BASNet so.
+CRF stay float32), float16 the same way, and ``basnet --dtype bfloat16`` (or
+float16) runs BASNet so. ``parity`` runs ``scripts/parity_harness_torch.py``
+(the port's models against the PyTorch goldens on the same ``.pth`` files),
+dispatched before this parser, as in the JAX package.
 ``supervised``, ``ablations`` and ``serve`` compute in float32 (int8 for
 ``serve``), as the JAX package's do. The training commands take dotted overrides onto
 ``config.ExperimentConfig`` (any depth: ``--alternating.refine.num_steps
@@ -408,7 +413,28 @@ def _client(args, parser) -> int:
     return 0
 
 
+def _parity(argv) -> int:
+    """``parity``: the harness script of the source checkout, with its own
+    arguments (dispatched before the main parser, whose --num-images and
+    --weights would otherwise take the harness's)."""
+    import runpy
+
+    script = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "scripts", "parity_harness_torch.py")
+    if not os.path.exists(script):
+        # the harness drives the goldens of tests/torch_ref.py, so it lives in
+        # the source checkout, not the installed package
+        print("error: the 'parity' command requires a source checkout "
+              "(scripts/parity_harness_torch.py not found next to the package); "
+              "run it from the repository root", file=sys.stderr)
+        return 2
+    return runpy.run_path(script, run_name="parity_harness_torch")["main"](argv)
+
+
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["parity"]:
+        return _parity(argv[1:])
     parser = argparse.ArgumentParser(prog="weaklysuperviseddl_tpu_torch")
     parser.add_argument("command", choices=["weakly", "supervised", "ablations", "serve",
                                             "client", "basnet", "dryrun"])
@@ -456,7 +482,7 @@ def main(argv=None) -> int:
                              "file does not exist)")
     parser.add_argument("--num-images", type=int, default=10,
                         help="basnet: test images to evaluate")
-    parser.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
+    parser.add_argument("--dtype", choices=["float32", "bfloat16", "float16"], default="float32",
                         help="basnet: the model's compute dtype (parameters stay float32)")
     parser.add_argument("--url", default="http://127.0.0.1:8765",
                         help="client: base URL of a running MaskServer")
@@ -468,7 +494,6 @@ def main(argv=None) -> int:
                         help="client: response wire format")
     parser.add_argument("--stats", action="store_true",
                         help="client: print the server's /healthz and /stats JSON")
-    argv = list(sys.argv[1:] if argv is None else argv)
     args, extra = parser.parse_known_args(argv)
     if args.command == "weakly":
         return _weakly(args, parser, extra, argv)

@@ -5,8 +5,8 @@ package, so a config recorded by either package loads in the other.
 ``MeshConfig`` places a run on a ('data', 'model') mesh as in JAX
 (``parallel/mesh.mesh_from_config``). ``RefineConfig.use_pallas``
 keeps its name: in the port it selects the CUDA kernel. ``classifier.dtype``
-and ``seg.dtype`` are the models' compute dtypes, "float32" or "bfloat16"
-(any other raises here).
+and ``seg.dtype`` are the models' compute dtypes, "float32", "bfloat16" or
+"float16" (any other raises here).
 """
 
 from __future__ import annotations
@@ -14,17 +14,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
-COMPUTE_DTYPES = ("float32", "bfloat16")
+COMPUTE_DTYPES = ("float32", "bfloat16", "float16")
 
 
 def check_compute_dtype(field: str, value) -> str:
-    """``value`` if it names a compute dtype the port runs, else raise: the
-    JAX package takes any ``jnp.dtype``; float16 and the rest are still to
-    port (ROADMAP.md queue 1)."""
+    """``value`` if it names a compute dtype the port runs, else raise (the
+    JAX package takes any ``jnp.dtype``; its float16, bfloat16 and float32
+    are the ones it runs models in)."""
     if value not in COMPUTE_DTYPES:
         raise ValueError(f"{field}={value!r} is not ported: the port computes in "
-                         f"{' or '.join(COMPUTE_DTYPES)}; the other dtypes are still to port "
-                         "(ROADMAP.md queue 1)")
+                         f"{', '.join(COMPUTE_DTYPES)}")
     return value
 
 

@@ -4,8 +4,8 @@
 //     out[b,p] = (cam[b,p] - lo_b) / (hi_b - lo_b + 1e-8)
 //
 // with lo_b, hi_b the min and max of cam over image b's pixels p; act and grad
-// are [B,C,h,w] float32 or bfloat16, both of one type (the port's NCHW
-// activations and their gradients), out is [B,h,w] float32.
+// are [B,C,h,w] float32, bfloat16 or float16, both of one type (the port's
+// NCHW activations and their gradients), out is [B,h,w] float32.
 //
 // Replaces the TPU kernel ops/pallas_cam.py::_cam_kernel of the JAX package
 // (fused_cam_fusion), which takes NHWC tiles with the channels on the lanes.
@@ -26,8 +26,9 @@
 // and each pixel is written once. Every sum runs in a fixed order: two
 // launches give the same bits.
 //
-// bfloat16 inputs. Each element is widened to float32 in registers, which is
-// exact, and goes through the same float32 arithmetic in the same order: the
+// bfloat16 and float16 inputs. Each element is widened to float32 in
+// registers, which is exact, and goes through the same float32 arithmetic in
+// the same order: the
 // vector width (4 elements, 8-byte loads), the split into CTAs, pixel lanes
 // and channel groups, and so every sum, are those of a float32 call at the
 // same shape, so the output is bit-equal to the kernel on the float32
@@ -38,7 +39,8 @@
 // (2*C + 1)*h*w*4 bytes per image: 51 MB at [32,1024,14,14] (layer3 of the
 // full-width classifier, 15.3 us at 3.35 TB/s) and 103 MB at [32,2048,14,14]
 // (layer4, 30.7 us); 3 operations an element are far below the card's rate.
-// In bfloat16, (4*C + 4)*h*w bytes: 7.7 us at layer3 and 15.4 us at layer4.
+// In bfloat16 or float16, (4*C + 4)*h*w bytes: 7.7 us at layer3 and 15.4 us
+// at layer4.
 // What the design does about it: one block an image left 100 of the 132 SMs
 // idle at batch 32, each busy SM streaming 3.2 MB alone; S CTAs an image put
 // B*S SMs on the stream, with 16-byte loads and 2*UNROLL of them a thread in
@@ -50,6 +52,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -97,6 +100,10 @@ struct Load<1, __nv_bfloat16> {
   __device__ static float at(const __nv_bfloat16* p, size_t i) { return __bfloat162float(p[i]); }
 };
 template <>
+struct Load<1, __half> {
+  __device__ static float at(const __half* p, size_t i) { return __half2float(p[i]); }
+};
+template <>
 struct Load<4, float> {
   __device__ static float4 at(const float* p, size_t i) {
     return reinterpret_cast<const float4*>(p)[i];
@@ -110,6 +117,19 @@ struct Load<4, __nv_bfloat16> {
     const uint2 r = reinterpret_cast<const uint2*>(p)[i];
     return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
                        __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
+  }
+};
+template <>
+struct Load<4, __half> {
+  // one 8-byte load; element k is bits [16k, 16k + 16) of the pair, little
+  // endian, each widened exactly
+  __device__ static float widen(unsigned bits) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(bits)));
+  }
+  __device__ static float4 at(const __half* p, size_t i) {
+    const uint2 r = reinterpret_cast<const uint2*>(p)[i];
+    return make_float4(widen(r.x & 0xffffu), widen(r.x >> 16), widen(r.y & 0xffffu),
+                       widen(r.y >> 16));
   }
 };
 
@@ -231,13 +251,17 @@ struct Plan {
   cudaLaunchConfig_t config;
 };
 
+// The input types, as the wrappers number them.
+enum InType { F32 = 0, BF16 = 1, F16 = 2, IN_TYPES = 3 };
+
 // vec: 4-element loads (h*w % 4 == 0 and pointers aligned to 4 elements);
-// bf16: bfloat16 inputs. The split does not depend on the input type.
-void make_plan(Plan& pl, bool vec, bool bf16, int B, int C, int HW, int S, void* stream) {
+// in: the inputs' InType. The split does not depend on the input type.
+void make_plan(Plan& pl, bool vec, int in, int B, int C, int HW, int S, void* stream) {
   pl = Plan{};
   pl.vec = vec ? 4 : 1;
-  pl.kernel = bf16 ? (vec ? cam_fusion<__nv_bfloat16, 4> : cam_fusion<__nv_bfloat16, 1>)
-                   : (vec ? cam_fusion<float, 4> : cam_fusion<float, 1>);
+  pl.kernel = in == BF16  ? (vec ? cam_fusion<__nv_bfloat16, 4> : cam_fusion<__nv_bfloat16, 1>)
+              : in == F16 ? (vec ? cam_fusion<__half, 4> : cam_fusion<__half, 1>)
+                          : (vec ? cam_fusion<float, 4> : cam_fusion<float, 1>);
   pl.CS = (C + S - 1) / S;
   pl.PT = std::min(THREADS, HW / pl.vec);
   const int fit = MAX_SMEM / static_cast<int>(sizeof(float) * HW);
@@ -264,49 +288,51 @@ cudaError_t max_active_clusters(const Plan& pl, int* n) {
   return cudaOccupancyMaxActiveClusters(n, pl.kernel, &pl.config);
 }
 
-bool valid(int B, int C, int HW, int S) {
+bool valid(int B, int C, int HW, int S, int in) {
   return B >= 1 && C >= 1 && HW >= 1 && HW <= MAX_SMEM / static_cast<int>(sizeof(float)) &&
-         S >= 1 && S <= MAX_CLUSTER && static_cast<long long>(B) * S <= 0x7fffffff;
+         S >= 1 && S <= MAX_CLUSTER && static_cast<long long>(B) * S <= 0x7fffffff &&
+         in >= 0 && in < IN_TYPES;
 }
 
 // For each device, input type, vector width and cluster size, the largest
 // dynamic shared memory of a plan found launchable: the occupancy query runs
 // once a shape.
 constexpr int MAX_DEVICES = 16;  // devices past these are queried on every call
-std::atomic<size_t> checked[MAX_DEVICES][2][2][MAX_CLUSTER + 1];
+std::atomic<size_t> checked[MAX_DEVICES][IN_TYPES][2][MAX_CLUSTER + 1];
 
 }  // namespace
 
 // The clusters of S CTAs that the card holds at once for a call at (C, HW),
-// with 4-element loads when vec != 0, on bfloat16 inputs when bf16 != 0: a
-// count >= 0, or minus the CUDA error of the query.
-extern "C" int wsdl_cam_fusion_max_clusters(int C, int HW, int S, int vec, int bf16) {
-  if (!valid(1, C, HW, S) || (vec && HW % 4)) return -static_cast<int>(cudaErrorInvalidValue);
+// with 4-element loads when vec != 0, on inputs of InType in: a count >= 0,
+// or minus the CUDA error of the query.
+extern "C" int wsdl_cam_fusion_max_clusters(int C, int HW, int S, int vec, int in) {
+  if (!valid(1, C, HW, S, in) || (vec && HW % 4))
+    return -static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
-  make_plan(pl, vec != 0, bf16 != 0, 1, C, HW, S, nullptr);
+  make_plan(pl, vec != 0, in, 1, C, HW, S, nullptr);
   int n = 0;
   const cudaError_t err = max_active_clusters(pl, &n);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
-// act, grad [B,C,h,w]: contiguous float32 (bf16 == 0) or bfloat16 (bf16 != 0)
-// on the device; out [B,h,w]: contiguous float32; HW = h*w; S: the CTAs of an
+// act, grad [B,C,h,w]: contiguous, of InType in (0 float32, 1 bfloat16,
+// 2 float16), on the device; out [B,h,w]: contiguous float32; HW = h*w; S: the CTAs of an
 // image's cluster, 1..8; stream: the cudaStream_t to launch on. Requires B >= 1, C >= 1 and HW*4 bytes within the card's
 // 227 KB of shared memory (the wrapper checks HW <= 50000). Returns
 // cudaErrorInvalidConfiguration if the card cannot hold one such cluster.
 extern "C" int wsdl_cam_fusion(const void* act, const void* grad, void* out, int B, int C,
-                               int HW, int S, int bf16, void* stream) {
-  if (!valid(B, C, HW, S)) return static_cast<int>(cudaErrorInvalidValue);
-  const std::uintptr_t align = bf16 ? 8 : 16;  // 4 elements
+                               int HW, int S, int in, void* stream) {
+  if (!valid(B, C, HW, S, in)) return static_cast<int>(cudaErrorInvalidValue);
+  const std::uintptr_t align = in == F32 ? 16 : 8;  // 4 elements
   const bool vec = HW % 4 == 0 && reinterpret_cast<std::uintptr_t>(act) % align == 0 &&
                    reinterpret_cast<std::uintptr_t>(grad) % align == 0;
   Plan pl;
-  make_plan(pl, vec, bf16 != 0, B, C, HW, S, stream);
+  make_plan(pl, vec, in, B, C, HW, S, stream);
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   std::atomic<size_t>* ok =
-      device < MAX_DEVICES ? &checked[device][bf16 != 0][vec][S] : nullptr;
+      device < MAX_DEVICES ? &checked[device][in][vec][S] : nullptr;
   if (ok == nullptr || pl.config.dynamicSmemBytes > ok->load(std::memory_order_relaxed)) {
     int n = 0;
     err = max_active_clusters(pl, &n);

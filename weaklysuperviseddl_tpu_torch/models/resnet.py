@@ -16,8 +16,8 @@ convolution; here the stem is that convolution (``StemConv``), which also
 names the kernel shape JAX's default ``s2d`` plan convolves with, the stem's
 fingerprint in an int8 calibration file (``ops/quant.py``).
 
-The compute dtype is flax's ``dtype=`` (float32 or bfloat16): parameters,
-BatchNorm statistics and the optimizer's state stay float32, while every
+The compute dtype is flax's ``dtype=`` (float32, bfloat16 or float16):
+parameters, BatchNorm statistics and the optimizer's state stay float32, while every
 ``Conv2d`` and ``Linear`` casts its input, kernel and bias to the compute
 dtype and returns it (the product accumulates in float32), and every
 ``BatchNorm2d`` normalises in float32 and returns the compute dtype, so the
@@ -38,14 +38,15 @@ import torch.nn.functional as F
 from weaklysuperviseddl_tpu_torch.config import check_compute_dtype
 from weaklysuperviseddl_tpu_torch.parallel.collectives import all_reduce_sum
 
-COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}
 BOTTLENECK_DEPTHS = (50,)
 
 
 def compute_dtype(dtype) -> torch.dtype:
-    """The torch dtype of a compute-dtype name ("float32", "bfloat16") or of
-    a torch dtype; any other raises (``config.check_compute_dtype``)."""
+    """The torch dtype of a compute-dtype name ("float32", "bfloat16",
+    "float16") or of a torch dtype; any other raises
+    (``config.check_compute_dtype``)."""
     return COMPUTE_DTYPES[check_compute_dtype("dtype", str(dtype).removeprefix("torch."))]
 
 

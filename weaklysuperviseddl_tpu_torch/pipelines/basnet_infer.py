@@ -8,9 +8,9 @@ IoU and accuracy of the map > 0.5 against trimap == 1, and their means over
 the first 10 test images. Here a batch runs as one forward. Weights come from
 the reference's ``basnet.pth`` when the file exists, else from a seeded
 random init (no download). ``build_basnet(dtype="bfloat16")`` computes in
-bfloat16 with float32 parameters, as JAX's ``build_basnet(dtype=...)``; the
-maps are cast to float32 before ``norm_pred``, so ``saliency_step`` and
-``run_inference`` return float32 maps in either dtype.
+bfloat16 with float32 parameters, as JAX's ``build_basnet(dtype=...)``, and
+"float16" in float16; the maps are cast to float32 before ``norm_pred``, so
+``saliency_step`` and ``run_inference`` return float32 maps in every dtype.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def build_basnet(weights_path: str | None = None, device=None,
     ``weights_path`` when that file exists (the reference's ``basnet.pth``,
     read with ``weights_only=True``), else random weights drawn from
     ``generator`` (``init_weights``; seed 0 when None). ``dtype``: the
-    compute dtype, "float32" or "bfloat16"."""
+    compute dtype, "float32", "bfloat16" or "float16"."""
     dev = resolve_device(device)
     model = BASNet(n_channels=3, n_classes=1, dtype=dtype)
     if weights_path and os.path.exists(weights_path):

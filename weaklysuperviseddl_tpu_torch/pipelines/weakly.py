@@ -25,8 +25,8 @@ and ``resume=True`` continues from the latest snapshot
 the cycle from given state dicts (for instance a JAX tree's, carried across by
 ``models/jax_import.py``) instead of the seeded ``init_weights``.
 
-``classifier.dtype`` and ``seg.dtype`` ("float32" or "bfloat16") are the two
-models' compute dtypes, on the resume path too, as in the JAX package:
+``classifier.dtype`` and ``seg.dtype`` ("float32", "bfloat16" or "float16")
+are the two models' compute dtypes, on the resume path too, as in the JAX package:
 parameters, BatchNorm statistics, Adam's state and snapshots stay float32;
 the CAMs, DeepLabV3's logits, the losses, the refinement's inputs and the
 CRF's stay float32. The supervised baseline and the ablation grid build

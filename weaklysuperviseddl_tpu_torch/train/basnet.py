@@ -14,9 +14,9 @@ square root, ``train/guard.Adam``), the cosine decay of
 (g · max_norm / ‖g‖ when ‖g‖ ≥ max_norm, with no epsilon in the denominator,
 unlike ``torch.nn.utils.clip_grad_norm_``).
 
-A bfloat16 BASNet (``BASNet(dtype="bfloat16")``) trains with float32
-parameters, Adam state and targets; its eight maps are promoted to float32
-before the loss. (JAX's ``train_basnet`` raises on a bfloat16 model: its SSIM
+A bfloat16 or float16 BASNet (``BASNet(dtype="bfloat16")``) trains with
+float32 parameters, Adam state and targets; its eight maps are promoted to
+float32 before the loss. (JAX's ``train_basnet`` raises on a bfloat16 model: its SSIM
 convolves the bfloat16 map with a float32 window.)
 """
 
