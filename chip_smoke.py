@@ -254,6 +254,26 @@ Phases, one JSON line each:
                one-device steps, whose backward adds with atomics); and
                refine_spatial_sharded at 1024², 3 steps, against
                refine_plain (loss rtol 1e-4, masks > 0.999). Stage seconds.
+ 23. foundation - the foundation baseline at full width, no kernel on its
+               path: hf_detector(config=grounding_dino_base()) (Swin-B
+               384, BERT-base over a 30522-entry vocab with the special
+               tokens at bert-base-uncased's ids, 900 queries, 6 + 6
+               layers) and hf_segmenter(config=sam_vit_base()) (ViT-B,
+               1024²), weights drawn from torch.Generators seeded 0 and 1,
+               through FoundationPipeline and evaluate_pipeline_on_dataset
+               on 16 synthetic test pets at 224² at the reference's
+               thresholds (0.3, 0.25), every kernel count reset just before
+               and read just after (all 0): img/s, boxes an image, peak GB,
+               the mask PNGs written. Device ms stage by stage on one image
+               (CUDA events): the detector's preprocess, Swin, BERT,
+               encoder, decoder, post-process; the segmenter's preprocess,
+               image encoder, prompt and mask decoder at 1 box and at the
+               detector's count. The card against the CPU on that image
+               (the same seeds): the top-900 proposals equal but where
+               their best logits lie within 1e-5 of the cut, the boxes both
+               keep within 1e-2 px, SAM's logits on the CPU pipeline's
+               boxes within 1e-3 of the largest, >= 0.999 of the pipeline's
+               mask pixels equal.
 The serve_int8 line also profiles DeepLabV3's float32 forward layer by
 layer at batches 16 and 32 (each convolution of layer3, layer4 and the head
 replayed alone: its kernels and device ms an image; those whose kernels
@@ -4009,14 +4029,8 @@ MESH_KERNELS = ("cc_label", "bilateral", "refine", "quantize_gather", "dequant_e
 
 
 def mesh_counts() -> dict:
-    """The launch counts of the kernels the mesh path runs."""
-    from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cuda
-    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
-    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
-
-    return {"cc_label": label_components_cuda.launches,
-            "bilateral": gaussian_filter_cuda.launches, "refine": refine_cuda.launches,
-            **qconv_counts()}
+    """The launch counts of the kernels the mesh path runs (and the int32 GEMM's)."""
+    return {k: v for k, v in kernel_counts().items() if k in MESH_KERNELS + ("int8_gemm",)}
 
 
 def mesh_store(n: int, size: int, seed: int):
@@ -4051,7 +4065,6 @@ def mesh_rank() -> dict:
 
     from weaklysuperviseddl_tpu_torch.config import AlternatingConfig, ExperimentConfig
     from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3, seed_dropout
-    from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cuda
     from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda, refine_plain
     from weaklysuperviseddl_tpu_torch.parallel.dryrun import dryrun_multichip
     from weaklysuperviseddl_tpu_torch.parallel.mesh import (
@@ -4080,11 +4093,7 @@ def mesh_rank() -> dict:
     store = mesh_store(8, 224, seed=33)
 
     # ---- the main path: every count from 0, the path, the counts read after ----
-    for kernel in (gaussian_filter_cuda, refine_cuda):
-        kernel.launches = 0
-    reset_cc_counts()
-    reset_qconv_counts()
-    refine_cuda.plan_launches = dict.fromkeys(refine_cuda.plan_launches, 0)
+    reset_kernel_counts()
     t0 = time.perf_counter()
     dry = dryrun_multichip(log=lambda line: print(line, flush=True), stopwatch=sw)
     state = create_seg_state(DeepLabV3(2, 50, 1.0), seed=cfg.seed + 1, lr=cfg.seg.lr, mesh=mesh)
@@ -4231,6 +4240,319 @@ def phase_mesh():
     return out["launches"]
 
 
+
+# SAM's hypernetwork output layer is scaled by this at random weights, whose
+# largest logit (0.03) stays under the pipeline's 0.5 threshold: the masks
+# then hold both values on the main path and in the card-against-CPU check
+FOUNDATION_MASK_GAIN = 100.0
+FEW_BOXES = 3  # the pipeline timed again at a trained detector's box count
+FOUNDATION_VOCAB_IDS = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102, "[MASK]": 103,
+                        ".": 1012, "?": 1029, "a": 1037, "an": 2019, "dog": 3899,
+                        "animal": 4111, "cat": 4937}
+
+
+def foundation_vocab() -> list[str]:
+    """BERT-base's 30522 entries for the full-width detector: the JAX package's
+    test words, the special tokens at the ids of models/gdino/bert.py's
+    SPECIAL_TOKENS (so "a cat. a dog." splits into its two phrases), and
+    "[unusedN]" everywhere else."""
+    vocab = [f"[unused{i}]" for i in range(30522)]
+    for tok, i in FOUNDATION_VOCAB_IDS.items():
+        vocab[i] = tok
+    return vocab
+
+
+def kernel_counts() -> dict:
+    """Every kernel counter of the port, under the kernels line's names (the
+    16-bit cam_fusion rows count the launches on their dtype)."""
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cuda
+    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import cam_fusion_cuda
+    from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda
+    from weaklysuperviseddl_tpu_torch.ops.refine import refine_cuda
+    from weaklysuperviseddl_tpu_torch.ops.window import window_sum_cuda, window_sum_grad_cuda
+
+    return {"cc_label": label_components_cuda.launches, "refine": refine_cuda.launches,
+            "refine_v2_aff": refine_cuda.plan_launches["v2_aff"],
+            "window_fwd": window_sum_cuda.launches, "window_bwd": window_sum_grad_cuda.launches,
+            "bilateral": gaussian_filter_cuda.launches,
+            "cam_fusion": cam_fusion_cuda.launches,
+            "cam_fusion_bf16": cam_fusion_cuda.launches_by_dtype["bfloat16"],
+            "cam_fusion_fp16": cam_fusion_cuda.launches_by_dtype["float16"], **qconv_counts()}
+
+
+def reset_kernel_counts():
+    """Every counter kernel_counts() reads, set to 0."""
+    from weaklysuperviseddl_tpu_torch.ops.bilateral import gaussian_filter_cuda
+    from weaklysuperviseddl_tpu_torch.ops.cam_fusion import cam_fusion_cuda
+    from weaklysuperviseddl_tpu_torch.ops.window import window_sum_cuda, window_sum_grad_cuda
+
+    reset_cc_counts()
+    reset_refine_counts()
+    reset_qconv_counts()
+    for fn in (window_sum_cuda, window_sum_grad_cuda, gaussian_filter_cuda, cam_fusion_cuda):
+        fn.launches = 0
+    cam_fusion_cuda.launches_by_dtype = dict.fromkeys(cam_fusion_cuda.launches_by_dtype, 0)
+
+
+def staged_ms(stages, runs: int = 5) -> dict:
+    """Median device ms of each named stage: ``stages()`` yields (name, out)
+    as each stage's work is queued; a CUDA event is recorded after each; one
+    warm-up run."""
+    import torch
+
+    times: dict[str, list[float]] = {}
+    for r in range(runs + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        marks = []
+        for name, _ in stages():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((name, e))
+        torch.cuda.synchronize()
+        if r == 0:
+            continue
+        prev = start
+        for name, e in marks:
+            times.setdefault(name, []).append(prev.elapsed_time(e))
+            prev = e
+    out = {k: statistics.median(v) for k, v in times.items()}
+    out["total"] = sum(out.values())
+    return out
+
+
+def detector_stages(det, image, prompts):
+    import torch
+
+    def stages():
+        inputs = det.preprocess(image, prompts)
+        yield "preprocess", inputs
+        with torch.no_grad():
+            for name, out in det.model.stages(inputs["pixel_values"], inputs["input_ids"],
+                                              inputs["token_type_ids"],
+                                              inputs["attention_mask"], inputs["pixel_mask"]):
+                yield name, out
+        yield "postprocess", det.postprocess(out[0], out[1], image.shape[:2])
+    return stages
+
+
+def segmenter_stages(seg, image, boxes):
+    import torch
+
+    def stages():
+        pixel_values, input_boxes = seg.preprocess(image, boxes)
+        yield "preprocess", pixel_values
+        with torch.no_grad():
+            emb = seg.model.vision_encoder(pixel_values)
+            yield "image_encoder", emb
+            yield "prompt_and_mask_decoder", seg.model.decode(emb, input_boxes)
+    return stages
+
+
+def gdino_selection(det, image, prompts):
+    """One image through the detector's stages: (the chosen proposals [Q],
+    every proposal's best logit [S] on the CPU, the kept boxes in pixels by
+    proposal index, the detector's output: the kept boxes in query order)."""
+    import torch
+
+    stage = dict(detector_stages(det, image, prompts)())
+    logits, boxes, topk, best = stage["decoder"]
+    kept = torch.sigmoid(logits[0]).max(-1)[0] > det.box_threshold
+    px = torch.from_numpy(det.postprocess(logits, boxes, image.shape[:2]))
+    idx = [i for i, k in zip(topk[0].tolist(), kept.tolist()) if k]
+    return topk[0].tolist(), best[0].cpu(), dict(zip(idx, px)), stage["postprocess"]
+
+
+class RecordingSegmenter:
+    """A SamSegmenter that keeps every call's boxes and raw outputs."""
+
+    def __init__(self, seg):
+        self.seg, self.calls = seg, []
+
+    def __call__(self, image, boxes):
+        iou, masks = self.seg.raw(image, boxes)
+        self.calls.append((boxes, iou, masks))
+        return masks[:, 0].cpu().numpy().squeeze(0)
+
+
+def phase_foundation():
+    """The foundation baseline at full width (facebook/sam-vit-base and
+    IDEA-Research/grounding-dino-base shapes, seeded random weights, SAM's
+    hypernetwork output scaled by FOUNDATION_MASK_GAIN) through
+    evaluate_pipeline_on_dataset on 16 synthetic pets, at the reference's
+    thresholds and again with the detector's boxes cut to FEW_BOXES (random
+    weights put ~700 of 900 queries over 0.3; a trained detector keeps a
+    few); stage times; the card against the CPU on one image."""
+    import copy
+    import math
+
+    import torch
+
+    from weaklysuperviseddl_tpu_torch.data.dataset import download_data
+    from weaklysuperviseddl_tpu_torch.models.foundation_config import (
+        grounding_dino_base,
+        sam_vit_base,
+    )
+    from weaklysuperviseddl_tpu_torch.pipelines import foundation as F
+
+    n_pets, size, prompts = 16, 224, F.DEFAULT_PROMPTS
+
+    def build(device):
+        det = F.hf_detector(config=grounding_dino_base(), vocab=foundation_vocab(),
+                            device=device, generator=torch.Generator().manual_seed(0))
+        seg = F.hf_segmenter(config=sam_vit_base(), device=device,
+                             generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            for mlp in seg.model.mask_decoder.output_hypernetworks_mlps:
+                mlp.proj_out.weight.mul_(FOUNDATION_MASK_GAIN)
+        return det, seg
+
+    t0 = time.perf_counter()
+    det, seg = build("cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dataset = download_data(None, split="test", synthetic_size=n_pets, image_size=size)
+    image0 = np.asarray(dataset[0][0])
+    boxes_per_image = []
+
+    def counting_detector(image, p):
+        boxes = det(image, p)
+        boxes_per_image.append(len(boxes))
+        return boxes
+
+    pipe = F.FoundationPipeline(detector=counting_detector, segmenter=seg, output_size=224)
+    t0 = time.perf_counter()
+    card_mask = pipe.run_segmentation_pipeline(image0)  # also the warm-up
+    torch.cuda.synchronize()
+    first_image_s = time.perf_counter() - t0
+    boxes_per_image.clear()
+
+    out_dir = CKPT_ROOT / "foundation_masks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    logs = []
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    iou, acc = F.evaluate_pipeline_on_dataset(dataset, pipe, num_images=n_pets,
+                                              save_dir=str(out_dir), log=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(not any(launches.values()), f"a kernel launched on the foundation path: {launches}")
+    files = sorted(os.listdir(out_dir))
+    masks = [f for f in files if f.startswith("mask_")]
+    predicted = n_pets - sum("No prediction made" in line for line in logs)
+    check(len(boxes_per_image) == n_pets and len(masks) == predicted,
+          f"{len(masks)} mask PNGs for {predicted} predictions")
+    check(math.isfinite(iou) and 0 <= iou <= 1 and 0 <= acc <= 1, f"IoU {iou}, accuracy {acc}")
+    check(card_mask is not None and card_mask.shape == (224, 224), "image 0 has a mask")
+    mask_frac = float(card_mask.mean())
+    check(0 < mask_frac < 1, f"image 0's mask holds one value (foreground {mask_frac})")
+
+    # the same pipeline at a trained detector's few boxes an image: the
+    # detector's boxes cut to their first FEW_BOXES (random weights saturate
+    # the scores at 1.0, so no threshold keeps a few)
+    few_boxes = []
+
+    def few_detector(image, p):
+        boxes = det(image, p)[:FEW_BOXES]
+        few_boxes.append(len(boxes))
+        return boxes
+
+    few_pipe = F.FoundationPipeline(detector=few_detector, segmenter=seg, output_size=224)
+    few_pipe.run_segmentation_pipeline(image0)  # warm-up at this box count
+    few_boxes.clear()
+    few_logs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    few_iou, few_acc = F.evaluate_pipeline_on_dataset(
+        dataset, few_pipe, num_images=n_pets, save_dir=str(CKPT_ROOT / "foundation_masks_few"),
+        log=few_logs.append)
+    torch.cuda.synchronize()
+    few_wall = time.perf_counter() - t0
+    check(few_boxes == [FEW_BOXES] * n_pets and math.isfinite(few_iou),
+          f"{few_boxes} boxes at the cut detector, IoU {few_iou}")
+
+    detector_ms = staged_ms(detector_stages(det, image0, prompts))
+    boxes0 = det(image0, prompts)
+    segmenter_ms_1 = staged_ms(segmenter_stages(seg, image0, boxes0[:1]))
+    segmenter_ms_n = staged_ms(segmenter_stages(seg, image0, boxes0), runs=3)
+
+    # the card against the CPU, one image, the same weights (copied off the card)
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    det_cpu = F.GroundingDinoDetector(copy.deepcopy(det.model).to(cpu), det.tokenizer, det.size,
+                                      det.box_threshold, det.text_threshold, cpu)
+    seg_cpu = F.SamSegmenter(copy.deepcopy(seg.model).to(cpu), seg.image_size, cpu)
+    seg_cpu.model.tie_weights()
+    cpu_s = {"copy": time.perf_counter() - t0}
+    idx_card, best_card, kept_card, _ = gdino_selection(det, image0, prompts)
+    t0 = time.perf_counter()
+    idx_cpu, best_cpu, kept_cpu, boxes_cpu = gdino_selection(det_cpu, image0, prompts)
+    cpu_s["detector"] = time.perf_counter() - t0
+    Q = len(idx_card)
+    cut_card = best_card.topk(Q).values[-1].item()
+    cut_cpu = best_cpu.topk(Q).values[-1].item()
+    swapped = sorted(set(idx_card) ^ set(idx_cpu))
+    swap_gap = max([min(abs(best_card[i].item() - cut_card), abs(best_cpu[i].item() - cut_cpu))
+                    for i in swapped], default=0.0)
+    check(swap_gap <= 1e-5, f"top-{Q} proposals differ away from the cut: {len(swapped)} "
+          f"swapped, {swap_gap} from it")
+    both = sorted(kept_card.keys() & kept_cpu.keys())
+    box_err = max([(kept_card[i] - kept_cpu[i]).abs().max().item() for i in both], default=0.0)
+    check(both and box_err <= 1e-2, f"{len(both)} boxes kept by both, {box_err} px apart")
+
+    # the CPU pipeline on that image, its detector's output taken from the run above
+    recording = RecordingSegmenter(seg_cpu)
+    t0 = time.perf_counter()
+    cpu_mask = F.FoundationPipeline(lambda image, p: boxes_cpu, recording,
+                                    224).run_segmentation_pipeline(image0)
+    cpu_s["segmenter"] = time.perf_counter() - t0
+    cpu_boxes, cpu_iou, cpu_logits = recording.calls[0]
+    card_iou, card_logits = seg.raw(image0, cpu_boxes)
+    logit_err = (card_logits.cpu() - cpu_logits).abs().max().item()
+    logit_scale = cpu_logits.abs().max().item()
+    check(logit_err <= 1e-3 * logit_scale, f"SAM logits {logit_err} apart (largest {logit_scale})")
+    agree = float((card_mask == cpu_mask).mean())
+    check(agree >= 0.999, f"pipeline masks agree on {agree} of the pixels")
+
+    boxes_mean = float(np.mean(boxes_per_image))
+    emit("foundation",
+         entry="evaluate_pipeline_on_dataset(dataset, FoundationPipeline(hf_detector(config="
+               "grounding_dino_base()), hf_segmenter(config=sam_vit_base())))",
+         models={"detector": "GroundingDINO-base shapes: Swin-B 384 (window 12), BERT-base "
+                             "(vocab 30522), d_model 256, 900 queries, 6+6 layers, 4 levels",
+                 "segmenter": "SAM ViT-B: 768 wide, 12 layers, 1024², window 14",
+                 "weights": "random, transformers' scheme, torch.Generator seeds 0 and 1"},
+         pets=n_pets, image_size=size, prompts=list(prompts),
+         box_threshold=det.box_threshold, text_threshold=det.text_threshold,
+         detector_input=list(det.preprocess(image0, prompts)["pixel_values"].shape),
+         build_s=build_s, first_image_s=first_image_s, wall_s=wall, img_per_s=n_pets / wall,
+         boxes_per_image=boxes_per_image, boxes_per_image_mean=boxes_mean,
+         predictions=predicted, masks_written=len(masks),
+         figures_written=len([f for f in files if f.startswith("viz_")]),
+         iou=iou, accuracy=acc, peak_mem_gb=peak_gb, launches=launches,
+         mask_gain=FOUNDATION_MASK_GAIN, image0_mask_foreground=mask_frac,
+         few_boxes={"boxes_per_image": FEW_BOXES, "wall_s": few_wall,
+                    "img_per_s": n_pets / few_wall,
+                    "predictions": n_pets - sum("No prediction made" in line
+                                                for line in few_logs),
+                    "iou": few_iou, "accuracy": few_acc},
+         detector_ms=detector_ms, segmenter_ms_1_box=segmenter_ms_1,
+         segmenter_ms_all_boxes={"boxes": len(boxes0), **segmenter_ms_n},
+         card_vs_cpu={"topk": Q, "swapped_at_cut": len(swapped), "swap_gap": swap_gap,
+                      "boxes_card": len(kept_card), "boxes_cpu": len(kept_cpu),
+                      "boxes_both": len(both), "box_max_px": box_err,
+                      "sam_boxes": len(cpu_boxes), "sam_logit_max_err": logit_err,
+                      "sam_logit_largest": logit_scale, "mask_agreement": agree,
+                      "cpu_side_s": cpu_s, "cpu_threads": torch.get_num_threads()},
+         nvidia_smi=subprocess.run(
+             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+             capture_output=True, text=True, timeout=60).stdout.strip())
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4284,6 +4606,7 @@ def run_phases(seconds: dict, t_start: float) -> int:
     pseudo_launches = timed("pseudo_stage", phase_pseudo_stage)
     compat_launches = timed("compat", phase_compat)
     mesh_launches = timed("mesh", phase_mesh)
+    foundation_launches = timed("foundation", phase_foundation)
 
     from weaklysuperviseddl_tpu_torch.masks.components import label_components
     from weaklysuperviseddl_tpu_torch.ops.cc import label_components_cuda, plan_for
@@ -4472,6 +4795,8 @@ def run_phases(seconds: dict, t_start: float) -> int:
                 "ops": gemm["ops"], "bytes": gemm["bytes"],
                 "launches": int8_launches["int8_gemm"]}} if name == "quantize_gather" else {}),
         })
+    for row in kernel_line["kernels"]:  # no kernel lies on the foundation path
+        row["launches_by_path"]["foundation"] = foundation_launches[row["name"]]
     emit("wall", seconds_by_phase=seconds, seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps(kernel_line), flush=True)

@@ -10,6 +10,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "weaklysuperviseddl_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "weaklysuperviseddl_tpu")
+# the foundation models are the port's own: no Hugging Face library either
+FORBIDDEN_HF = ("transformers", "safetensors", "tokenizers")
 
 
 def _imported_modules(path: Path):
@@ -24,8 +26,9 @@ def _imported_modules(path: Path):
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert PORT / "pipelines" / "foundation.py" in files
     bad = [(f.relative_to(ROOT), mod) for f in files for mod in _imported_modules(f)
-           if mod.split(".")[0] in FORBIDDEN]
+           if mod.split(".")[0] in FORBIDDEN + FORBIDDEN_HF]
     assert not bad, bad
 
 
@@ -35,6 +38,10 @@ def test_guard_sees_forbidden_imports(tmp_path):
                  "from weaklysuperviseddl_tpu_torch.ops import cc\nimport flax\n")
     mods = [m for m in _imported_modules(f) if m.split(".")[0] in FORBIDDEN]
     assert mods == ["jax.numpy", "weaklysuperviseddl_tpu.ops", "flax"]
+    f.write_text("from transformers import SamModel\nimport safetensors.torch\n"
+                 "import tokenizers\nimport torch\n")
+    mods = [m for m in _imported_modules(f) if m.split(".")[0] in FORBIDDEN_HF]
+    assert mods == ["transformers", "safetensors.torch", "tokenizers"]
 
 
 @pytest.fixture
@@ -57,6 +64,29 @@ def test_entry_points_without_device_raise_when_there_is_no_card(no_cuda):
         resolve_device("cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
     assert Predictor(model, size=32, device="cpu").device == torch.device("cpu")
+
+
+def test_foundation_entry_points_without_device_raise_when_there_is_no_card(no_cuda):
+    from weaklysuperviseddl_tpu_torch.cli import main
+    from weaklysuperviseddl_tpu_torch.models.foundation_config import (
+        tiny_gdino_config,
+        tiny_sam_config,
+    )
+    from weaklysuperviseddl_tpu_torch.pipelines.foundation import (
+        FoundationPipeline,
+        hf_detector,
+        hf_segmenter,
+    )
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hf_segmenter(config=tiny_sam_config())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hf_detector(config=tiny_gdino_config())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FoundationPipeline()
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["foundation", "--num-images", "1"])
+    assert hf_segmenter(config=tiny_sam_config(), device="cpu").device == torch.device("cpu")
 
 
 def test_training_entry_points_without_device_raise_when_there_is_no_card(no_cuda):

@@ -11,6 +11,7 @@ weaklysuperviseddl_tpu/cli.py):
     python -m weaklysuperviseddl_tpu_torch client --url http://host:8765 --image photo.jpg
     python -m weaklysuperviseddl_tpu_torch basnet [--weights ./Weights/basnet.pth]
         [--num-images 10] [--dtype bfloat16] [--device cpu]
+    python -m weaklysuperviseddl_tpu_torch foundation [--num-images 10] [--device cpu]
     python -m weaklysuperviseddl_tpu_torch dryrun [--devices N] [--device cpu]
     python -m weaklysuperviseddl_tpu_torch parity --weights-dir ./Weights [--device cpu]
         [--pet-root DIR] [--basnet-golden-dir DIR] [--num-images 8] [--out PARITY.md]
@@ -55,7 +56,13 @@ calibration batch's pixels, the float model serves, with a WARNING.
 images (synthetic without Pet data), the weights of ``--weights`` when the
 file exists, else seeded random ones, per-image and mean IoU and accuracy
 against trimap == 1, and the maps as PNGs in ``./basnet_outputs`` (skipped,
-with a WARNING, where PIL is not installed).
+with a WARNING, where PIL is not installed). ``foundation`` is the reference's
+``two_stage_foundation.py``: GroundingDINO boxes → SAM masks on
+``--num-images`` synthetic test pets, IoU and accuracy against trimap ∈ {1,
+3}, masks in ``./pseudo_masks``; the models are facebook/sam-vit-base and
+IDEA-Research/grounding-dino-base read from the local Hugging Face cache
+(``HF_HUB_CACHE``, else ``HF_HOME/hub``, else ``~/.cache/huggingface/hub``);
+a missing snapshot raises, naming the path (nothing is downloaded).
 """
 
 from __future__ import annotations
@@ -384,6 +391,21 @@ def _basnet(args) -> int:
     return 0
 
 
+def _foundation(args) -> int:
+    """The reference's ``two_stage_foundation.py`` (the JAX package's
+    ``foundation`` command) on the port's models."""
+    from weaklysuperviseddl_tpu_torch.data.dataset import download_data
+    from weaklysuperviseddl_tpu_torch.pipelines.foundation import (
+        FoundationPipeline,
+        evaluate_pipeline_on_dataset,
+    )
+
+    pipeline = FoundationPipeline(device=_device(args))
+    dataset = download_data(None, split="test", synthetic_size=args.num_images)
+    evaluate_pipeline_on_dataset(dataset, pipeline, num_images=args.num_images)
+    return 0
+
+
 def _client(args, parser) -> int:
     import urllib.error
 
@@ -437,14 +459,14 @@ def main(argv=None) -> int:
         return _parity(argv[1:])
     parser = argparse.ArgumentParser(prog="weaklysuperviseddl_tpu_torch")
     parser.add_argument("command", choices=["weakly", "supervised", "ablations", "serve",
-                                            "client", "basnet", "dryrun"])
+                                            "client", "basnet", "foundation", "dryrun"])
     parser.add_argument("--smoke", action="store_true",
                         help="weakly, supervised: config.smoke_config(); ablations: that "
                              "config, the grid's first point, one repeat; serve: depth 18, "
                              "width 0.25, 48², max_batch 2, one self-request, then exit")
     parser.add_argument("--device", default=None,
-                        help="weakly, supervised, ablations, serve, basnet, dryrun: torch "
-                             "device (default: the card; 'cpu' to run on the CPU)")
+                        help="weakly, supervised, ablations, serve, basnet, foundation, "
+                             "dryrun: torch device (default: the card; 'cpu' to run on the CPU)")
     parser.add_argument("--devices", type=int, default=None,
                         help="dryrun: ranks (default: the visible cards; 8 with --device cpu)")
     parser.add_argument("--alternating", action="store_true",
@@ -481,7 +503,7 @@ def main(argv=None) -> int:
                         help="basnet: the reference's BASNet state dict (random init if the "
                              "file does not exist)")
     parser.add_argument("--num-images", type=int, default=10,
-                        help="basnet: test images to evaluate")
+                        help="basnet, foundation: test images to evaluate")
     parser.add_argument("--dtype", choices=["float32", "bfloat16", "float16"], default="float32",
                         help="basnet: the model's compute dtype (parameters stay float32)")
     parser.add_argument("--url", default="http://127.0.0.1:8765",
@@ -507,6 +529,8 @@ def main(argv=None) -> int:
         return _serve(args, parser)
     if args.command == "basnet":
         return _basnet(args)
+    if args.command == "foundation":
+        return _foundation(args)
     if args.command == "dryrun":
         return _dryrun(args, argv)
     return _client(args, parser)
