@@ -53,9 +53,9 @@ def test_predictor_bucket_padding(pair):
     dispatched = []
     orig = pred._dispatch
 
-    def spy(images):
+    def spy(images, did):
         dispatched.append(tuple(images.shape))
-        return orig(images)
+        return orig(images, did)
 
     pred._dispatch = spy
     imgs = _requests(2, 5, (SIZE, SIZE))
@@ -106,6 +106,6 @@ def test_warmup_runs_every_bucket(pair):
     pred = Predictor(pair[2], size=SIZE, max_batch=4, device="cpu")
     seen = []
     orig = pred._dispatch
-    pred._dispatch = lambda images: seen.append(images.shape[0]) or orig(images)
+    pred._dispatch = lambda images, did: seen.append(images.shape[0]) or orig(images, did)
     assert pred.warmup((32, 40), all_buckets=True) is pred
     assert seen == [1, 2, 4]

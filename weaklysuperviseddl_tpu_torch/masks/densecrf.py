@@ -55,6 +55,7 @@ from weaklysuperviseddl_tpu_torch.ops.bilateral import (
     gaussian_filter_rff,
     rff_basis,
 )
+from weaklysuperviseddl_tpu_torch.utils.profiling import span
 
 BACKENDS = ("attention", "subsampled", "grid", "lattice", "rff")
 GRID_CORNERS = 32  # 2^5 corners of a cell of the 5-D grid
@@ -251,9 +252,11 @@ def apply_dense_crf(images: torch.Tensor, cams: torch.Tensor, n_iters: int = 5,
     """The reference's surface (AlternatingDirectionCutLoss.py:183-204): cams
     [B,H,W] in [0,1] → binary masks [B,H,W] uint8 through a 2-label CRF with
     unary softmax([1−cam, cam]). Images in [0,1] are taken to [0,255]: the
-    test is on the max over the whole batch, as in the JAX package."""
-    probs = torch.stack([1.0 - cams, cams], dim=-1).clamp(1e-8, 1.0)
-    images = images.float()
-    images = torch.where(images.max() <= 1.5, images * 255.0, images)
-    Q = densecrf_inference(probs, images, n_iters=n_iters, **kwargs)
-    return Q.argmax(dim=-1).to(torch.uint8)
+    test is on the max over the whole batch, as in the JAX package. A
+    ``crf`` span (``utils/profiling.span``) with ``iters``."""
+    with span("crf", iters=n_iters):
+        probs = torch.stack([1.0 - cams, cams], dim=-1).clamp(1e-8, 1.0)
+        images = images.float()
+        images = torch.where(images.max() <= 1.5, images * 255.0, images)
+        Q = densecrf_inference(probs, images, n_iters=n_iters, **kwargs)
+        return Q.argmax(dim=-1).to(torch.uint8)

@@ -27,6 +27,16 @@ device's kernels are deterministic: always on the CPU, and on the card with
 kernels give two runs of one batch CAMs a few 1e-7 apart). The resident
 path runs batch by batch whatever ``batches_per_dispatch`` says (the port
 builds no device program to batch over).
+
+Under a ``torch.profiler`` session each stage's host work is a span
+(``utils/profiling.span``): ``pseudo/drain`` (the loader's drain and the
+concatenation), ``pseudo/upload`` (``bytes``) and ``pseudo/layercam`` (the
+enqueue of LayerCAM, batch by batch) in ``extract_cams``; ``pseudo/derive``
+(the enqueue of the masks, with a ``crf`` span a batch),
+``pseudo/readback`` (masks and store images to the host, ``bytes``) and
+``pseudo/store`` (the puts and the flush, ``items``) in ``masks_from_cams``.
+The spilled path has the same spans a window, and ``pseudo/readback`` for
+the CAMs it keeps on the host.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from weaklysuperviseddl_tpu_torch.data.mask_store import MaskStore
 from weaklysuperviseddl_tpu_torch.data.preprocess import preprocess_batch
 from weaklysuperviseddl_tpu_torch.masks.components import keep_largest_batch
 from weaklysuperviseddl_tpu_torch.masks.densecrf import apply_dense_crf
+from weaklysuperviseddl_tpu_torch.utils.profiling import span
 
 
 def cam_to_mask(cam: torch.Tensor, cam_thresh: float, keep_largest_masks: bool = True):
@@ -123,22 +134,24 @@ def extract_cams(loader, model, alpha: float = 1.0, target_layers=("layer3", "la
     imgs, labels = [], []
     n, batch_size = 0, None
     cap = np.inf if max_images is None else max_images
-    for batch in loader:
-        if n >= cap:
-            break
-        batch_size = batch.image.shape[0] if batch_size is None else batch_size
-        take = int(min(batch.num_valid, cap - n))
-        imgs.append(np.asarray(batch.image[:take], np.uint8))
-        labels.append(np.asarray(batch.label[:take], np.int32))
-        n += take
+    with span("pseudo/drain"):
+        for batch in loader:
+            if n >= cap:
+                break
+            batch_size = batch.image.shape[0] if batch_size is None else batch_size
+            take = int(min(batch.num_valid, cap - n))
+            imgs.append(np.asarray(batch.image[:take], np.uint8))
+            labels.append(np.asarray(batch.label[:take], np.int32))
+            n += take
+        if n:
+            images_np = np.concatenate(imgs)
+            labels_np = np.concatenate(labels)
     if n == 0:
         empty = torch.zeros((0, image_size, image_size), device=dev)
         return ResidentCams(torch.zeros((0, image_size, image_size, 3), dtype=torch.uint8,
                                         device=dev), empty,
                             torch.zeros((0, image_size, image_size, 3), dtype=torch.uint8,
                                         device=dev), image_size, batch_size or 1)
-    images_np = np.concatenate(imgs)
-    labels_np = np.concatenate(labels)
     B = batch_size
     idx_table = _index_table(n, B)
     body = dict(target_layers=target_layers, alpha=alpha, alpha_mode=alpha_mode,
@@ -151,24 +164,31 @@ def extract_cams(loader, model, alpha: float = 1.0, target_layers=("layer3", "la
         store_np = np.empty((T * B, image_size, image_size, 3), np.uint8)
         for start in range(0, T, K):
             window = idx_table[start:start + K].reshape(-1)
-            raws = torch.from_numpy(images_np[window]).to(dev)
-            labs = torch.from_numpy(labels_np[window]).to(dev)
-            out = [_cam_batch(model, raws[j:j + B], labs[j:j + B], **body)
-                   for j in range(0, window.shape[0], B)]
+            with span("pseudo/upload",
+                      bytes=window.shape[0] * (images_np[0].nbytes + labels_np[0].nbytes)):
+                raws = torch.from_numpy(images_np[window]).to(dev)
+                labs = torch.from_numpy(labels_np[window]).to(dev)
+            with span("pseudo/layercam"):
+                out = [_cam_batch(model, raws[j:j + B], labs[j:j + B], **body)
+                       for j in range(0, window.shape[0], B)]
             # the window's readback before the next upload: the device holds
             # one window at a time
             rows = slice(start * B, start * B + window.shape[0])
-            cams_np[rows] = torch.cat([c for c, _ in out]).cpu().numpy()
-            store_np[rows] = torch.cat([im for _, im in out]).cpu().numpy()
+            with span("pseudo/readback", bytes=cams_np[rows].nbytes + store_np[rows].nbytes):
+                cams_np[rows] = torch.cat([c for c, _ in out]).cpu().numpy()
+                store_np[rows] = torch.cat([im for _, im in out]).cpu().numpy()
         return ResidentCams(images_np, cams_np[:n], store_np[:n], image_size, B,
                             on_device=False, device=dev)
 
-    images_all = torch.from_numpy(images_np).to(dev)
-    labels_all = torch.from_numpy(labels_np).to(dev)
-    out = [_cam_batch(model, images_all[idx], labels_all[idx], **body)
-           for idx in torch.from_numpy(idx_table).to(dev)]
-    return ResidentCams(images_all, torch.cat([c for c, _ in out])[:n],
-                        torch.cat([im for _, im in out])[:n], image_size, B)
+    with span("pseudo/upload", bytes=images_np.nbytes + labels_np.nbytes):
+        images_all = torch.from_numpy(images_np).to(dev)
+        labels_all = torch.from_numpy(labels_np).to(dev)
+    with span("pseudo/layercam"):
+        out = [_cam_batch(model, images_all[idx], labels_all[idx], **body)
+               for idx in torch.from_numpy(idx_table).to(dev)]
+        cams = torch.cat([c for c, _ in out])[:n]
+        store_images = torch.cat([im for _, im in out])[:n]
+    return ResidentCams(images_all, cams, store_images, image_size, B)
 
 
 def _derive_batch(raw: torch.Tensor, cam: torch.Tensor, cam_thresh: float,
@@ -221,11 +241,13 @@ def masks_from_cams(resident: ResidentCams, cam_thresh: float = 0.3,
 
     if resident.on_device:
         dev = resident.device
-        masks = torch.cat([derive(resident.images_raw[idx] if use_crf else None,
-                                  resident.cams[idx])
-                           for idx in torch.from_numpy(idx_table).to(dev)])[:n]
-        masks_np = masks.cpu().numpy()
-        images_np = resident.store_images[torch.from_numpy(order).to(dev)].cpu().numpy()
+        with span("pseudo/derive"):
+            masks = torch.cat([derive(resident.images_raw[idx] if use_crf else None,
+                                      resident.cams[idx])
+                               for idx in torch.from_numpy(idx_table).to(dev)])[:n]
+        with span("pseudo/readback", bytes=n * S * S * 4):
+            masks_np = masks.cpu().numpy()
+            images_np = resident.store_images[torch.from_numpy(order).to(dev)].cpu().numpy()
     else:
         # upload a window's content, derive, read back: the device holds one
         # window at a time
@@ -233,17 +255,23 @@ def masks_from_cams(resident: ResidentCams, cam_thresh: float = 0.3,
         masks_np = np.empty((idx_table.size, S, S), np.uint8)
         for start in range(0, idx_table.shape[0], K):
             window = idx_table[start:start + K].reshape(-1)
-            cams = torch.from_numpy(resident.cams[window]).to(resident.device)
-            raws = (torch.from_numpy(resident.images_raw[window]).to(resident.device)
-                    if use_crf else None)
-            out = [derive(None if raws is None else raws[j:j + B], cams[j:j + B])
-                   for j in range(0, window.shape[0], B)]
-            masks_np[start * B:start * B + window.shape[0]] = torch.cat(out).cpu().numpy()
+            raw_bytes = resident.images_raw[0].nbytes if use_crf else 0
+            with span("pseudo/upload",
+                      bytes=window.shape[0] * (resident.cams[0].nbytes + raw_bytes)):
+                cams = torch.from_numpy(resident.cams[window]).to(resident.device)
+                raws = (torch.from_numpy(resident.images_raw[window]).to(resident.device)
+                        if use_crf else None)
+            with span("pseudo/derive"):
+                out = [derive(None if raws is None else raws[j:j + B], cams[j:j + B])
+                       for j in range(0, window.shape[0], B)]
+            with span("pseudo/readback", bytes=window.shape[0] * S * S):
+                masks_np[start * B:start * B + window.shape[0]] = torch.cat(out).cpu().numpy()
         masks_np = masks_np[:n]
         images_np = resident.store_images[order]
-    for img_id in range(n):
-        store.put(f"{img_id:05d}", images_np[img_id], masks_np[img_id])
-    store.flush()
+    with span("pseudo/store", items=n):
+        for img_id in range(n):
+            store.put(f"{img_id:05d}", images_np[img_id], masks_np[img_id])
+        store.flush()
     return store
 
 

@@ -25,12 +25,18 @@ row blocks, one a device, and the masks come back in order.
 
 ``MaskServer`` and ``MaskClient`` carry the reference's HTTP protocol over
 unchanged.
+
+Under a ``torch.profiler`` session both record spans (``utils/profiling.span``):
+a batch's ``serve/dispatch`` (``serve/pad``, ``serve/pin``, ``serve/upload``,
+``serve/forward``) and ``serve/readback`` (``serve/wait``, ``serve/unpack``),
+all with the batch's ``dispatch`` id, and each request's ``http/*`` stages.
 """
 
 from __future__ import annotations
 
 import copy
 import io
+import itertools
 
 import numpy as np
 import torch
@@ -39,6 +45,7 @@ from weaklysuperviseddl_tpu_torch.data.preprocess import preprocess_images
 from weaklysuperviseddl_tpu_torch.device import resolve_device
 from weaklysuperviseddl_tpu_torch.masks.components import keep_largest_batch
 from weaklysuperviseddl_tpu_torch.train.segmentation import _normalize_images
+from weaklysuperviseddl_tpu_torch.utils.profiling import record_span, span
 
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 
@@ -113,6 +120,7 @@ class Predictor:
         self.quantized = None  # set by quantize()
         self.mesh = mesh
         self._replicas: list = []  # (device, model) of the serving model, made on first use
+        self._dispatch_ids = itertools.count()  # the ``dispatch`` of a batch's spans
         if packed:
             nc = getattr(model, "num_classes", 2)
             if nc != 2:
@@ -198,22 +206,28 @@ class Predictor:
         self.quantized, report = q.build(clip_ratio=clip_ratio)
         return report
 
-    def _dispatch(self, images: torch.Tensor):
+    def _dispatch(self, images: torch.Tensor, did: int):
         """Enqueue one bucket-sized batch, a block of rows on each replica's
         device; returns (host tensor, the replicas' events)."""
         replicas = self._serving_replicas()
         outs, done = [], []
         for (dev, model), block in zip(replicas, images.chunk(len(replicas))):
             if dev.type != "cuda":
-                outs.append(predict_masks(model, block, self.size, self.clean, self.packed))
+                with span("serve/forward", dispatch=did):
+                    outs.append(predict_masks(model, block, self.size, self.clean, self.packed))
                 continue
             with torch.cuda.device(dev):
-                x = block.pin_memory().to(dev, non_blocking=True)
-                out = predict_masks(model, x, self.size, self.clean, self.packed)
-                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                host.copy_(out, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
+                with span("serve/pin", dispatch=did, bytes=block.nbytes):
+                    pinned = block.pin_memory()
+                with span("serve/upload", dispatch=did, bytes=block.nbytes):
+                    x = pinned.to(dev, non_blocking=True)
+                # the forward's enqueue, K2, the packing and the readback copy
+                with span("serve/forward", dispatch=did):
+                    out = predict_masks(model, x, self.size, self.clean, self.packed)
+                    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                    host.copy_(out, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
             outs.append(host)
             done.append(event)
         return (outs[0] if len(outs) == 1 else torch.cat(outs)), done
@@ -224,19 +238,27 @@ class Predictor:
         n = images.shape[0]
         if n > self.max_batch:
             raise ValueError(f"batch {n} exceeds max_batch {self.max_batch}")
-        bucket = self._bucket(n)
-        if n < bucket:
-            images = np.concatenate([images, np.repeat(images[-1:], bucket - n, axis=0)])
-        return self._dispatch(torch.from_numpy(np.ascontiguousarray(images, np.uint8))), n
+        did = next(self._dispatch_ids)
+        with span("serve/dispatch", dispatch=did, images=n):
+            bucket = self._bucket(n)
+            with span("serve/pad", dispatch=did):
+                if n < bucket:
+                    images = np.concatenate([images, np.repeat(images[-1:], bucket - n, axis=0)])
+                block = torch.from_numpy(np.ascontiguousarray(images, np.uint8))
+            host, done = self._dispatch(block, did)
+        return (host, done, did), n
 
     def readback(self, pending, n: int) -> np.ndarray:
         """Wait for a ``dispatch_async`` result; unpack bitmaps and strip the
         bucket padding."""
-        host, done = pending
-        for event in done:
-            event.synchronize()
-        out = host.numpy()[:n]
-        return np.unpackbits(out, axis=-1) if self.packed else out.copy()
+        host, done, did = pending
+        with span("serve/readback", dispatch=did):
+            with span("serve/wait", dispatch=did):
+                for event in done:
+                    event.synchronize()
+            with span("serve/unpack", dispatch=did):
+                out = host.numpy()[:n]
+                return np.unpackbits(out, axis=-1) if self.packed else out.copy()
 
     def __call__(self, images: np.ndarray) -> np.ndarray:
         return self.readback(*self.dispatch_async(images))
@@ -287,8 +309,20 @@ class MaskServer:
     ``Content-Type: image/*`` is decoded with PIL, and ``Accept: image/png``
     returns a 1-bit PNG mask; PIL is imported only for those, so the npy wire
     works without it. Malformed bodies get 400, unknown paths 404.
-    GET /healthz → readiness JSON; GET /stats → cumulative counters and
-    request latency p50/p90/p99 over a 4096-request ring buffer.
+    GET /healthz → readiness JSON; GET /stats → cumulative counters,
+    request latency p50/p90/p99 and each stage's p50 and p99
+    (``stage_p50_ms``, ``stage_p99_ms``) over a 4096-request ring buffer.
+
+    A request's stages (``STAGES``) tile its life from accept to response
+    written: ``read`` (body read and decode), ``queue`` (until the
+    dispatcher takes it), ``coalesce`` (until its batch is dispatched),
+    ``dispatch`` (the batch's ``dispatch_async``), ``inflight`` (until the
+    drainer starts its readback), ``readback``, ``handoff`` (result set
+    until the handler wakes) and ``respond`` (encode and write). The
+    latency percentiles run from accept to the handler's wake, the first
+    seven stages. Under a ``torch.profiler`` session each stage is also a
+    span ``http/<stage>`` with the request's ``rid`` (``dispatch`` and
+    ``readback`` are the batch's ``serve/*`` spans).
 
     Requests arriving within ``max_wait_ms`` of each other coalesce into one
     dispatch (up to ``predictor.max_batch``); same-shape requests batch
@@ -304,6 +338,9 @@ class MaskServer:
     ``max_body_bytes`` or negative gets 413 before the body is read; an
     accepted request waits at most ``request_timeout_s`` (then 504).
     """
+
+    STAGES = ("read", "queue", "coalesce", "dispatch", "inflight", "readback", "handoff",
+              "respond")
 
     def __init__(self, predictor, host: str = "127.0.0.1", port: int = 0,
                  max_wait_ms: float = 5.0, in_flight: int = 4, max_queue: int = 256,
@@ -337,6 +374,8 @@ class MaskServer:
         # per-request wall latency (accept → result ready) of successful
         # requests, seconds; ring buffer
         self.latencies_s: deque[float] = deque(maxlen=4096)
+        # per-request seconds of each of STAGES, successful requests; ring buffer
+        self.stage_s: deque[tuple] = deque(maxlen=4096)
 
     def drain_dispatch_sizes(self) -> list[int]:
         """Return and clear the recorded per-dispatch batch sizes."""
@@ -362,14 +401,25 @@ class MaskServer:
         server = self
         self._started_at = time.monotonic()
 
-        class _Job:
-            __slots__ = ("img", "event", "result", "error")
+        rids = itertools.count()
 
-            def __init__(self, img):
+        class _Job:
+            # ``t``: time.monotonic() at accept, queued (made just before the
+            # put), taken, dispatch start and end, readback start and end,
+            # handler woken, response written
+            __slots__ = ("img", "event", "result", "error", "t")
+
+            def __init__(self, img, t_accept):
                 self.img = img
                 self.event = threading.Event()
                 self.result = None
                 self.error = None
+                self.t = [t_accept, time.monotonic()] + [0.0] * 7
+
+        def stamp(jobs, i):
+            now = time.monotonic()
+            for b in jobs:
+                b.t[i] = now
 
         def dispatcher():
             # Owns the device: coalesces, dispatches asynchronously, hands
@@ -380,6 +430,7 @@ class MaskServer:
                 job = q.get()
                 if job is None:
                     break
+                stamp((job,), 2)
                 batch = [job]
                 deadline = time.monotonic() + max_wait_s
                 while len(batch) < pred.max_batch:
@@ -402,6 +453,7 @@ class MaskServer:
                         # deadlock against a full bounded queue)
                         stopping = True
                         break
+                    stamp((nxt,), 2)
                     batch.append(nxt)
                 groups = {}
                 for b in batch:
@@ -413,6 +465,7 @@ class MaskServer:
                         with server._stats_lock:
                             server.total_dispatches += 1
                             server.total_images += len(chunk)
+                        stamp(chunk, 3)
                         try:
                             dev, n = pred.dispatch_async(np.stack([b.img for b in chunk]))
                         except Exception as e:  # surface as 500, keep serving
@@ -420,6 +473,7 @@ class MaskServer:
                                 b.error = e
                                 b.event.set()
                             continue
+                        stamp(chunk, 4)
                         inflight.put((chunk, dev, n))
             inflight.put(None)
 
@@ -431,6 +485,7 @@ class MaskServer:
                 if item is None:
                     return
                 chunk, dev, n = item
+                stamp(chunk, 5)
                 try:
                     masks = pred.readback(dev, n)
                     for b, m in zip(chunk, masks):
@@ -438,6 +493,7 @@ class MaskServer:
                 except Exception as e:  # surface as 500, keep serving
                     for b in chunk:
                         b.error = e
+                stamp(chunk, 6)
                 for b in chunk:
                     b.event.set()
 
@@ -474,6 +530,7 @@ class MaskServer:
                         n_shed, n_rej, n_to = (server.total_shed, server.total_rejected,
                                                server.total_timeouts)
                     lat = list(server.latencies_s)
+                    stages = list(server.stage_s)
                     body = {
                         "total_requests": n_req,
                         "total_dispatches": n_disp,
@@ -493,6 +550,11 @@ class MaskServer:
                             "latency_p90_ms": round(float(ms[1]), 1),
                             "latency_p99_ms": round(float(ms[2]), 1),
                         })
+                    if stages:
+                        ms = np.percentile(np.asarray(stages) * 1e3, [50, 99], axis=0)
+                        for key, row in zip(("stage_p50_ms", "stage_p99_ms"), ms):
+                            body[key] = {name: round(float(v), 3)
+                                         for name, v in zip(server.STAGES, row)}
                 else:
                     self.send_error(404, "GET /healthz or /stats")
                     return
@@ -505,6 +567,7 @@ class MaskServer:
                 with server._stats_lock:
                     server.total_requests += 1
                 t_accept = time.monotonic()
+                rid = next(rids)
                 try:
                     n = int(self.headers.get("Content-Length", 0))
                     if n < 0 or n > server.max_body_bytes:
@@ -514,22 +577,24 @@ class MaskServer:
                             server.total_rejected += 1
                         self.send_error(413, f"body {n} bytes exceeds cap {server.max_body_bytes}")
                         return
-                    raw = self.rfile.read(n)
-                    ctype = (self.headers.get("Content-Type")
-                             or "application/octet-stream").split(";")[0].strip()
-                    if ctype.startswith("image/"):
-                        from PIL import Image
+                    with span("http/read", rid=rid):
+                        raw = self.rfile.read(n)
+                        ctype = (self.headers.get("Content-Type")
+                                 or "application/octet-stream").split(";")[0].strip()
+                        if ctype.startswith("image/"):
+                            from PIL import Image
 
-                        img = np.asarray(Image.open(io.BytesIO(raw)).convert("RGB"), np.uint8)
-                    else:
-                        img = np.load(io.BytesIO(raw), allow_pickle=False)
+                            img = np.asarray(Image.open(io.BytesIO(raw)).convert("RGB"),
+                                             np.uint8)
+                        else:
+                            img = np.load(io.BytesIO(raw), allow_pickle=False)
                     if img.ndim != 3 or img.shape[-1] != 3 or img.dtype != np.uint8:
                         raise ValueError(f"expected uint8 [h,w,3], got {img.dtype} {img.shape}")
                 except Exception:
                     self.send_error(400, "body must be np.save of uint8 [h,w,3], or a "
                                          "PNG/JPEG with Content-Type: image/*")
                     return
-                job = _Job(img)
+                job = _Job(img, t_accept)
                 try:
                     q.put_nowait(job)
                 except queue.Full:
@@ -546,19 +611,27 @@ class MaskServer:
                 if job.error is not None:
                     self.send_error(500, str(job.error))
                     return
+                t = job.t
+                t[7] = time.monotonic()
                 # only successful requests enter the latency percentiles
-                server.latencies_s.append(time.monotonic() - t_accept)
-                buf = io.BytesIO()
-                if "image/png" in (self.headers.get("Accept") or "").lower():
-                    from PIL import Image
+                server.latencies_s.append(t[7] - t[0])
+                with span("http/respond", rid=rid):
+                    buf = io.BytesIO()
+                    if "image/png" in (self.headers.get("Accept") or "").lower():
+                        from PIL import Image
 
-                    Image.fromarray((job.result > 0).astype(np.uint8) * 255, "L").convert(
-                        "1").save(buf, format="PNG")
-                    out_type = "image/png"
-                else:
-                    np.save(buf, job.result)
-                    out_type = "application/octet-stream"
-                self._send(200, out_type, buf.getvalue())
+                        Image.fromarray((job.result > 0).astype(np.uint8) * 255, "L").convert(
+                            "1").save(buf, format="PNG")
+                        out_type = "image/png"
+                    else:
+                        np.save(buf, job.result)
+                        out_type = "application/octet-stream"
+                    self._send(200, out_type, buf.getvalue())
+                t[8] = time.monotonic()
+                server.stage_s.append(tuple(b - a for a, b in zip(t, t[1:])))
+                for name, i in (("http/queue", 1), ("http/coalesce", 2), ("http/inflight", 4),
+                                ("http/handoff", 6)):
+                    record_span(name, t[i], t[i + 1], rid=rid)
 
             def log_message(self, *args):  # quiet: the server is a library
                 pass

@@ -46,7 +46,7 @@ from weaklysuperviseddl_tpu_torch.train.segmentation import (
 from weaklysuperviseddl_tpu_torch.utils.cache import BoundedCache
 from weaklysuperviseddl_tpu_torch.utils.checkpoint import save_alternation
 from weaklysuperviseddl_tpu_torch.utils.graphs import Captured, capture
-from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch
+from weaklysuperviseddl_tpu_torch.utils.profiling import Stopwatch, span
 
 
 def _sweep_index_table(n: int, batch_size: int) -> np.ndarray:
@@ -123,15 +123,16 @@ class _Sweep:
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
                 batch(self.idx, self.acc)
-            self.graph = capture(lambda: batch(self.idx, self.acc), stream)
+            self.graph = capture(lambda: batch(self.idx, self.acc), stream, "train/sweep")
             torch.cuda.current_stream(dev).wait_stream(stream)
             self.fingerprint = fingerprint
             first = 1
         else:
             self.acc.zero_()
-        for t in range(first, idx_table.shape[0]):
-            self.idx.copy_(idx_table[t])
-            self.graph.replay()
+        with span("train/sweep", batches=idx_table.shape[0] - first):
+            for t in range(first, idx_table.shape[0]):
+                self.idx.copy_(idx_table[t])
+                self.graph.replay()
         return self.acc.clone()
 
 

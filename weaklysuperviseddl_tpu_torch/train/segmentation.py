@@ -72,6 +72,7 @@ from weaklysuperviseddl_tpu_torch.utils.metrics import (
     finish_iou_and_acc,
     per_class_iou,
 )
+from weaklysuperviseddl_tpu_torch.utils.profiling import span
 
 
 LOSSES = ("cross_entropy", "lovasz_softmax")
@@ -334,15 +335,17 @@ class _GraphEpochs:
             self.warm = True
         state.optimizer.zero_grad()       # the gradients come from the graph's pool
         self.graphs[k] = capture(
-            lambda: [self._step(state, images, masks, table[i]) for i in range(k)], self.stream)
+            lambda: [self._step(state, images, masks, table[i]) for i in range(k)], self.stream,
+            f"train/chunk{k}")
         state.optimizer.zero_grad()       # ... and stay there, out of the state
 
     def run(self, rows: torch.Tensor, state, images, masks):
         k = rows.shape[0]
-        self.tables[k].copy_(rows)
-        if k not in self.graphs:
-            self._capture(k, state, images, masks)
-        self.graphs[k].replay()
+        with span("train/chunk", steps=k):
+            self.tables[k].copy_(rows)
+            if k not in self.graphs:
+                self._capture(k, state, images, masks)
+            self.graphs[k].replay()
 
     @property
     def capture_seconds(self) -> dict:

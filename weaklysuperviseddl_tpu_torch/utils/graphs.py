@@ -2,10 +2,12 @@
 counterpart of the JAX package's one-program dispatch (``lax.scan`` under
 ``jax.jit``).
 
-* ``capture(fn, stream)`` records ``fn``'s launches on ``stream`` into a
-  ``torch.cuda.CUDAGraph`` and returns a ``Captured``, whose ``replay()``
+* ``capture(fn, stream, name)`` records ``fn``'s launches on ``stream`` into
+  a ``torch.cuda.CUDAGraph`` and returns a ``Captured``, whose ``replay()``
   runs them again on the current stream. A capture that fails raises: there
-  is no eager fallback on the card.
+  is no eager fallback on the card. Each capture is a ``graph/capture``
+  span (``utils/profiling.span``) with the graph's ``name``, so a capture
+  made again where a replay was meant shows in a trace.
 * ``count_launch(wrapper, plan)`` is how a counted kernel wrapper (its
   ``launches`` and ``plan_launches``) adds a launch. Inside a capture nothing
   runs yet, so the launch is recorded for the graph instead, and every replay
@@ -25,6 +27,8 @@ memory pool that the graph keeps until it is freed.
 from __future__ import annotations
 
 import torch
+
+from weaklysuperviseddl_tpu_torch.utils.profiling import span
 
 _recording: list[list] = []   # the launch lists of the captures in progress
 
@@ -57,7 +61,7 @@ class Captured:
                 wrapper.plan_launches[plan] += 1
 
 
-def capture(fn, stream: torch.cuda.Stream) -> Captured:
+def capture(fn, stream: torch.cuda.Stream, name: str) -> Captured:
     """Capture ``fn()`` on ``stream`` into a new graph with a private pool."""
     import time
 
@@ -66,7 +70,7 @@ def capture(fn, stream: torch.cuda.Stream) -> Captured:
     t0 = time.perf_counter()
     _recording.append(launches)
     try:
-        with torch.cuda.graph(graph, stream=stream):
+        with span("graph/capture", graph=name), torch.cuda.graph(graph, stream=stream):
             fn()
     finally:
         _recording.pop()
