@@ -997,3 +997,90 @@ def test_compat_surface_launches_its_kernels(cuda):
     assert refine_cuda.launches == before + 1 and got.is_cuda
     want = CL.refine_pseudo_mask(handle.to("cpu"), image, mask255, lr=0.2, num_steps=5)
     assert (got.cpu() == want).float().mean() >= 0.995
+
+
+def _small_predictor(device, int8, clean=True, packed=True, max_batch=4, mesh=None):
+    """DeepLabV3 at depth 18 and width 0.25 behind a Predictor at 64², warmed
+    at every bucket (int8: quantized on the warm-up images first)."""
+    from weaklysuperviseddl_tpu_torch.models.deeplabv3 import DeepLabV3
+    from weaklysuperviseddl_tpu_torch.models.resnet import init_weights
+    from weaklysuperviseddl_tpu_torch.pipelines.serve import Predictor
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = init_weights(DeepLabV3(2, 18, 0.25), torch.Generator().manual_seed(0))
+    place = dict(device=device) if mesh is None else dict(mesh=mesh)
+    pred = Predictor(model, size=64, max_batch=max_batch, clean=clean, packed=packed, **place)
+    if int8:
+        pred.quantize(_serve_images(max_batch, seed=5))
+    return pred.warmup((50, 70), all_buckets=True)
+
+
+def _serve_images(n, seed=0):
+    return (np.random.default_rng(seed).uniform(0, 1, (n, 50, 70, 3)) * 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("clean_packed", [True, False])
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "float32"])
+def test_dispatch_makes_no_host_sync(cuda, int8, clean_packed):
+    """``dispatch_async`` at every bucket under sync-debug mode "error": the
+    dispatch never waits for the card, so batches in flight overlap."""
+    pred = _small_predictor(cuda, int8, clean=clean_packed, packed=clean_packed)
+    torch.cuda.synchronize()
+    pending = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in pred.buckets():
+            pending.append(pred.dispatch_async(_serve_images(b, seed=b)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for (result, n), b in zip(pending, pred.buckets()):
+        assert pred.readback(result, n).shape == (b, 64, 64)
+
+
+def test_second_dispatch_finds_the_first_still_running(cuda):
+    """With the stream held by a sleep, the second of two back-to-back
+    dispatches counts the first as pending."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from weaklysuperviseddl_tpu_torch.utils.profiling import take_spans
+
+    pred = _small_predictor(cuda, int8=False)
+    torch.cuda.synchronize()
+    before = pred.overlapped
+    take_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        torch.cuda._sleep(500_000_000)
+        first = pred.dispatch_async(_serve_images(4))
+        second = pred.dispatch_async(_serve_images(4, seed=1))
+    pending = [sp.attrs["pending"] for sp in take_spans() if sp.name == "serve/dispatch"]
+    for result in (first, second):
+        pred.readback(*result)
+    assert pending[0] == 0 and pending[1] >= 1
+    assert pred.overlapped == before + 1
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_readback_after_a_late_forward_equals_predict_masks(cuda, replicas):
+    """A forward held back by a sleep on every replica's stream: readback
+    still returns the masks that ``predict_masks`` gives the same batch, as
+    the replicas' blocks are joined only after their events. Two replicas
+    need two cards."""
+    from weaklysuperviseddl_tpu_torch.parallel.mesh import make_mesh
+    from weaklysuperviseddl_tpu_torch.pipelines.serve import predict_masks
+
+    if torch.cuda.device_count() < replicas:
+        pytest.skip(f"needs {replicas} CUDA devices")
+    mesh = (None if replicas == 1 else
+            make_mesh(data=2, devices=[torch.device("cuda", i) for i in range(2)]))
+    pred = _small_predictor(cuda, int8=True, mesh=mesh)
+    imgs = _serve_images(4, seed=3)
+    want = np.concatenate([
+        predict_masks(model, torch.from_numpy(block).to(dev), 64, clean=True).cpu().numpy()
+        for (dev, model), block in zip(pred._serving_replicas(), np.split(imgs, replicas))])
+    torch.cuda.synchronize()
+    for dev, _ in pred._serving_replicas():
+        with torch.cuda.device(dev):
+            torch.cuda._sleep(500_000_000)
+    got = pred.readback(*pred.dispatch_async(imgs))
+    np.testing.assert_array_equal(got, want)

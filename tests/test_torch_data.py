@@ -91,3 +91,15 @@ def test_mask_store_png_round_trip(tmp_path):
     mem_images, mem_masks, _ = store.as_arrays()
     np.testing.assert_array_equal(mem_masks, want_masks)
     np.testing.assert_array_equal(mem_images, images)
+
+
+def test_mask_store_keeps_the_last_overwrite(tmp_path):
+    """Writes of one key queued back to back land in the order they were made."""
+    rng = np.random.default_rng(1)
+    store = MaskStore(directory=str(tmp_path))
+    masks = rng.integers(0, 2, (12, 96, 80)).astype(np.uint8)
+    store.put("00000", rng.integers(0, 256, (96, 80, 3)).astype(np.uint8), masks[0])
+    for mask in masks[1:]:
+        store.update_mask("00000", mask)
+    _, got_masks, _ = MaskStore.load(str(tmp_path)).as_arrays()
+    np.testing.assert_array_equal(got_masks[0], masks[-1])

@@ -109,3 +109,63 @@ def test_warmup_runs_every_bucket(pair):
     pred._dispatch = lambda images, did: seen.append(images.shape[0]) or orig(images, did)
     assert pred.warmup((32, 40), all_buckets=True) is pred
     assert seen == [1, 2, 4]
+
+
+@pytest.mark.parametrize("ndim", [2, 3, 4])
+@pytest.mark.parametrize("width", [8, 16, 24, 64, 136, 256])
+def test_pack_binary_masks_equals_numpy_packbits(width, ndim):
+    """The bitmap is np.packbits' (bitorder 'big'), byte for byte, whatever
+    the leading axes."""
+    lead = (3, 5, 2)[: ndim - 1]
+    m = np.random.default_rng(width + ndim).integers(0, 2, (*lead, width)).astype(np.uint8)
+    packed = pack_binary_masks(torch.from_numpy(m)).numpy()
+    assert packed.dtype == np.uint8 and packed.shape == (*lead, width // 8)
+    np.testing.assert_array_equal(packed, np.packbits(m, axis=-1))
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+@pytest.mark.parametrize("packed", [False, True])
+def test_readback_strips_the_ragged_tail(pair, packed, replicas):
+    """A batch of 3 pads to the bucket of 4; readback returns the 3 rows the
+    padded batch gave them, on one device and joined from two replicas'
+    blocks."""
+    from weaklysuperviseddl_tpu_torch.parallel.mesh import make_mesh
+
+    port = pair[2]
+    imgs = _requests(6, 3, (SIZE, SIZE))
+    padded = np.concatenate([imgs, imgs[-1:]])
+    place = (dict(device="cpu") if replicas == 1
+             else dict(mesh=make_mesh(data=2, devices=[torch.device("cpu")] * 2)))
+    pred = Predictor(port, size=SIZE, max_batch=4, packed=packed, **place)
+    full = pred.readback(*pred.dispatch_async(padded))
+    got = pred.readback(*pred.dispatch_async(imgs))
+    assert full.shape == (4, SIZE, SIZE) and got.shape == (3, SIZE, SIZE)
+    np.testing.assert_array_equal(got, full[:3])
+
+
+class _Event:
+    def __init__(self, complete):
+        self.complete = complete
+
+    def query(self):
+        return self.complete
+
+
+def test_dispatch_counts_the_dispatches_still_running(pair):
+    """``serve/dispatch`` carries ``pending``, the earlier dispatches whose
+    events do not report complete, and ``overlapped`` counts the dispatches
+    that found one; the CPU records no event, so its dispatches find none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from weaklysuperviseddl_tpu_torch.utils.profiling import take_spans
+
+    pred = Predictor(pair[2], size=SIZE, max_batch=2, device="cpu")
+    imgs = _requests(7, 2, (SIZE, SIZE))
+    take_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        pred.readback(*pred.dispatch_async(imgs))
+        pred._running = [[_Event(True)], [_Event(False), _Event(True)], [_Event(False)]]
+        pred.readback(*pred.dispatch_async(imgs))
+    pending = [sp.attrs["pending"] for sp in take_spans() if sp.name == "serve/dispatch"]
+    assert pending == [0, 2] and pred.overlapped == 1
+    assert len(pred._running) == 2   # the complete dispatch is forgotten

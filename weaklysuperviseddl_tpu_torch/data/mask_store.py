@@ -54,7 +54,7 @@ class MaskStore:
         self.directory = directory
         self._images: dict[str, np.ndarray] = {}
         self._masks: dict[str, np.ndarray] = {}
-        self._dirty = False
+        self._queued: set[str] = set()     # keys written since the last flush
         self._native = None
         self.writer = None
         if directory is not None:
@@ -82,10 +82,14 @@ class MaskStore:
 
     def _write_png(self, key: str, image: np.ndarray | None, mask: np.ndarray):
         if self._native is not None:
+            if key in self._queued:
+                # the pool's threads may finish two writes of one path in
+                # either order: the earlier one lands before the later is queued
+                self.flush()
             self._native.png_write_async(os.path.join(self.mask_dir, f"{key}.png"), mask * 255)
             if image is not None:
                 self._native.png_write_async(os.path.join(self.image_dir, f"{key}.png"), image)
-            self._dirty = True
+            self._queued.add(key)
             return
         from PIL import Image
 
@@ -96,8 +100,8 @@ class MaskStore:
     def flush(self):
         """The durability barrier: returns once every PNG this store queued
         is written; raises ``OSError`` naming the paths that failed."""
-        if self._dirty:
-            self._dirty = False
+        if self._queued:
+            self._queued.clear()
             self._native.io_flush()
 
     def update_mask(self, key: str, mask: np.ndarray):

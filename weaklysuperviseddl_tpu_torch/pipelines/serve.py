@@ -11,6 +11,8 @@ copy, the forward pass is enqueued on the current stream, and the result is
 copied back into pinned host memory with a ``non_blocking`` copy followed by
 an event; ``readback`` waits on that event. Nothing in the dispatch waits for
 the card, so a caller overlaps the next dispatch with the device's work.
+``Predictor.overlapped`` counts the dispatches that found an earlier one
+still running on the card.
 
 ``Predictor.quantize`` swaps the model for its int8 rewrite (``ops/quant.py``,
 JAX's int8 PTQ: its sites, scales and calibration file), calibrated on images
@@ -30,6 +32,8 @@ Under a ``torch.profiler`` session both record spans (``utils/profiling.span``):
 a batch's ``serve/dispatch`` (``serve/pad``, ``serve/pin``, ``serve/upload``,
 ``serve/forward``) and ``serve/readback`` (``serve/wait``, ``serve/unpack``),
 all with the batch's ``dispatch`` id, and each request's ``http/*`` stages.
+``serve/dispatch`` also carries ``pending``: the predictor's earlier
+dispatches still running on the card when it began.
 """
 
 from __future__ import annotations
@@ -47,18 +51,18 @@ from weaklysuperviseddl_tpu_torch.masks.components import keep_largest_batch
 from weaklysuperviseddl_tpu_torch.train.segmentation import _normalize_images
 from weaklysuperviseddl_tpu_torch.utils.profiling import record_span, span
 
-_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
-
 
 def pack_binary_masks(masks: torch.Tensor) -> torch.Tensor:
     """[..., W] uint8 {0,1} → [..., W//8] uint8 bitmap (np.unpackbits layout,
-    bitorder='big'): binary masks cross the device→host link 8x smaller."""
+    bitorder='big'): binary masks cross the device→host link 8x smaller.
+    The shifts are made on the masks' device: a tensor copied there from
+    pageable host memory would wait for the device's stream."""
     w = masks.shape[-1]
     if w % 8:
         raise ValueError(f"width {w} not divisible by 8")
     bits = masks.reshape(*masks.shape[:-1], w // 8, 8).to(torch.uint8)
-    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=masks.device)
-    return (bits * weights).sum(dim=-1, dtype=torch.uint8)
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=masks.device)
+    return (bits << shifts).sum(dim=-1, dtype=torch.uint8)
 
 
 def model_inputs(images_uint8: torch.Tensor, size: int) -> torch.Tensor:
@@ -96,6 +100,10 @@ class Predictor:
     ``quantized`` is the int8 model that serves in place of ``model`` once
     ``quantize`` has run (None: the float model serves).
 
+    ``overlapped`` counts the dispatches that began while an earlier one of
+    this predictor was still running on the card (its events did not yet
+    report complete).
+
     ``mesh``: a local ``parallel/mesh.Mesh`` (instead of ``device``); the
     batch is split over its 'data' axis, so ``max_batch`` must be a multiple
     of it and every bucket is rounded up to one."""
@@ -121,6 +129,8 @@ class Predictor:
         self.mesh = mesh
         self._replicas: list = []  # (device, model) of the serving model, made on first use
         self._dispatch_ids = itertools.count()  # the ``dispatch`` of a batch's spans
+        self._running: list = []  # the events of each earlier dispatch not yet seen complete
+        self.overlapped = 0
         if packed:
             nc = getattr(model, "num_classes", 2)
             if nc != 2:
@@ -208,7 +218,8 @@ class Predictor:
 
     def _dispatch(self, images: torch.Tensor, did: int):
         """Enqueue one bucket-sized batch, a block of rows on each replica's
-        device; returns (host tensor, the replicas' events)."""
+        device; returns (the replicas' host tensors, their events). A host
+        tensor is written by the card until its event completes."""
         replicas = self._serving_replicas()
         outs, done = [], []
         for (dev, model), block in zip(replicas, images.chunk(len(replicas))):
@@ -230,7 +241,13 @@ class Predictor:
                     event.record()
             outs.append(host)
             done.append(event)
-        return (outs[0] if len(outs) == 1 else torch.cat(outs)), done
+        return outs, done
+
+    def _still_running(self) -> int:
+        """How many earlier dispatches have an event that does not report
+        complete (``Event.query``, which does not block); forgets the rest."""
+        self._running = [done for done in self._running if not all(e.query() for e in done)]
+        return len(self._running)
 
     def dispatch_async(self, images: np.ndarray):
         """Pad to the serving bucket and dispatch WITHOUT waiting: returns
@@ -239,25 +256,30 @@ class Predictor:
         if n > self.max_batch:
             raise ValueError(f"batch {n} exceeds max_batch {self.max_batch}")
         did = next(self._dispatch_ids)
-        with span("serve/dispatch", dispatch=did, images=n):
+        pending = self._still_running()
+        self.overlapped += pending > 0
+        with span("serve/dispatch", dispatch=did, images=n, pending=pending):
             bucket = self._bucket(n)
             with span("serve/pad", dispatch=did):
                 if n < bucket:
                     images = np.concatenate([images, np.repeat(images[-1:], bucket - n, axis=0)])
                 block = torch.from_numpy(np.ascontiguousarray(images, np.uint8))
-            host, done = self._dispatch(block, did)
-        return (host, done, did), n
+            hosts, done = self._dispatch(block, did)
+        if done:
+            self._running.append(done)
+        return (hosts, done, did), n
 
     def readback(self, pending, n: int) -> np.ndarray:
         """Wait for a ``dispatch_async`` result; unpack bitmaps and strip the
         bucket padding."""
-        host, done, did = pending
+        hosts, done, did = pending
         with span("serve/readback", dispatch=did):
             with span("serve/wait", dispatch=did):
                 for event in done:
                     event.synchronize()
             with span("serve/unpack", dispatch=did):
-                out = host.numpy()[:n]
+                # the replicas' blocks are joined only once their events are done
+                out = (hosts[0] if len(hosts) == 1 else torch.cat(hosts)).numpy()[:n]
                 return np.unpackbits(out, axis=-1) if self.packed else out.copy()
 
     def __call__(self, images: np.ndarray) -> np.ndarray:
